@@ -14,7 +14,7 @@ Two views, both printed as JSON lines:
   Regenerate at S ∈ {25, 50, 100} — coarse grows linearly in S, fine is
   flat. This is the compiled program size, i.e. what the chip executes.
 - **Sweep wall time** at S=100 (whole sweep jitted as one program,
-  median of reps; CPU or TPU — run with the default backend).
+  median of reps; run with the default backend).
 
 Usage: ``python benchmarks/incremental_micro.py [--small]``
 """
@@ -28,9 +28,9 @@ import time
 import jax
 import jax.numpy as jnp
 
-import genjax_tpu as g
-from genjax_tpu.gfi.requests import Regenerate
-from genjax_tpu.lang import static as static_mod
+import genjax_xla as g
+from genjax_xla.gfi.requests import Regenerate
+from genjax_xla.lang import static as static_mod
 
 
 def make_chain(s: int, d: int = 1):

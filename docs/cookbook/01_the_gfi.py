@@ -1,6 +1,6 @@
 """Cookbook 1 — The Generative Function Interface, by hand.
 
-Every model in genjax_tpu is a *generative function*: a probabilistic
+Every model in genjax_xla is a *generative function*: a probabilistic
 program with a small abstract interface (the GFI). Inference algorithms
 are written once against this interface and work for any model. This
 walkthrough exercises each method on one tiny model and checks the
@@ -8,7 +8,7 @@ weight identities that make SMC/MCMC/VI correct.
 
 Parity: the reference cookbook's `generative_function_interface.ipynb`
 (reference `docs/cookbook/active/`), re-derived for this framework. The
-GFI itself is defined in `genjax_tpu/gfi/gfn.py` (reference
+GFI itself is defined in `genjax_xla/gfi/gfn.py` (reference
 `generative_function.py`).
 
 Conventions (gfi/concepts.py):
@@ -22,7 +22,7 @@ import jax
 import jax.numpy as jnp
 import jax.scipy.stats as jss
 
-import genjax_tpu as g
+import genjax_xla as g
 
 key = jax.random.key(0)
 

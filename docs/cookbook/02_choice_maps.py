@@ -5,14 +5,14 @@ A ChoiceMap is the random database of a trace: a mapping from addresses
 and posterior samples are all choice maps. This page is the algebra
 tour — parity with the reference cookbook's `choice_maps.ipynb`
 (reference `docs/cookbook/active/`); implementation
-`genjax_tpu/gfi/choice_map.py` (reference `choice_map.py`).
+`genjax_xla/gfi/choice_map.py` (reference `choice_map.py`).
 """
 
 import jax
 import jax.numpy as jnp
 
-import genjax_tpu as g
-from genjax_tpu.utils import pformat
+import genjax_xla as g
+from genjax_xla.utils import pformat
 
 # -- building ------------------------------------------------------------
 # The builder `g.C` creates maps address-by-address; `|` merges.

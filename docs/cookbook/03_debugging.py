@@ -17,12 +17,12 @@ re-designed around this framework's interpreters):
 import jax
 import jax.numpy as jnp
 
-import genjax_tpu as g
-from genjax_tpu.core.compiler.interpreters.time_travel import (
+import genjax_xla as g
+from genjax_xla.core.compiler.interpreters.time_travel import (
     rec,
     time_machine,
 )
-from genjax_tpu.utils import pformat, render_html
+from genjax_xla.utils import pformat, render_html
 
 key = jax.random.key(0)
 
@@ -87,7 +87,7 @@ tr = branchy.simulate(key, (0.3,))
 print(pformat(tr))  # switch branches annotated active/inactive
 html = render_html(tr)  # collapsible HTML; save or _repr_html_ in Jupyter
 assert "<details" in html
-# `genjax_tpu.utils.pretty()` installs _repr_html_ on every Pytree, so
+# `genjax_xla.utils.pretty()` installs _repr_html_ on every Pytree, so
 # notebooks render traces richly with no further setup.
 
 # -- 4. time travel ------------------------------------------------------

@@ -26,8 +26,8 @@ numbers (4.9x on a 100-site chain of 8192-dim sites on host CPU).
 import jax
 import jax.numpy as jnp
 
-import genjax_tpu as g
-from genjax_tpu.lang import static as static_mod
+import genjax_xla as g
+from genjax_xla.lang import static as static_mod
 
 S = 30
 key = jax.random.key(0)

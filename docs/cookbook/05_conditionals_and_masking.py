@@ -14,15 +14,15 @@ reference `docs/cookbook/inactive/expressivity/`) is:
 - `masked_iterate`: scan with a per-step validity flag — variable-length
   sequences at a static maximum length.
 
-TPU note: this is why the whole framework stays jit-compatible — a
+Note: this is why the whole framework stays jit-compatible — a
 switch lowers to `lax.cond`/`select` (no host round-trip), masks lower
-to `where`, and the MXU/VPU never see dynamic shapes.
+to `where`, and the compiled program never sees dynamic shapes.
 """
 
 import jax
 import jax.numpy as jnp
 
-import genjax_tpu as g
+import genjax_xla as g
 
 key = jax.random.key(0)
 
@@ -89,7 +89,7 @@ print("masked scores:", float(tr_on.get_score()), float(tr_off.get_score()))
 
 # -- masked_iterate: ragged sequences, static shapes ---------------------
 # Five time steps allocated, but only the flagged ones execute — the
-# standard trick for batching sequences of different lengths on TPU.
+# standard trick for batching sequences of different lengths.
 @g.gen
 def walk_step(x):
     return g.normal(x + 1.0, 1e-3) @ "x"

@@ -12,7 +12,7 @@ for gradient-based inference. Parity with the reference cookbook's
 import jax
 import jax.numpy as jnp
 
-import genjax_tpu as g
+import genjax_xla as g
 
 key = jax.random.key(0)
 

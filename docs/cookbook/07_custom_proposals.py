@@ -15,8 +15,8 @@ algebra is `inference/smc.py` (reference `smc.py:233-279`).
 import jax
 import jax.numpy as jnp
 
-import genjax_tpu as g
-from genjax_tpu.inference import Importance, Target
+import genjax_xla as g
+from genjax_xla.inference import Importance, Target
 
 key = jax.random.key(0)
 

@@ -28,8 +28,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import genjax_tpu as g
-from genjax_tpu.inference import ImportanceK, Target
+import genjax_xla as g
+from genjax_xla.inference import ImportanceK, Target
 
 key = jax.random.key(0)
 

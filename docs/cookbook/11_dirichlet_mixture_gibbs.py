@@ -14,7 +14,7 @@ Indexed constraints (`C["pts", jnp.arange(N), "z"].set(...)` edits
 every lane in one O(N) update), and the GFI edit loop as the engine of
 a Gibbs sampler — the conditionals are computed OUTSIDE the model (in
 plain JAX) and the trace is the single source of truth for the state.
-The whole sweep jits; on TPU the N and K axes are ordinary vector
+The whole sweep jits; on an accelerator the N and K axes are ordinary vector
 lanes.
 """
 
@@ -22,7 +22,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import genjax_tpu as g
+import genjax_xla as g
 
 key = jax.random.key(0)
 

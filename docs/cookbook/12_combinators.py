@@ -8,13 +8,13 @@ generative function, so they nest freely — and every one of them lowers
 to a single XLA-friendly primitive (`vmap` → batching, `scan` →
 `lax.scan`, `switch`/`mix` → dense branch selection, `dimap` → plain
 function composition), which is exactly why deep compositions still
-compile to one TPU program.
+compile to one XLA program.
 """
 
 import jax
 import jax.numpy as jnp
 
-import genjax_tpu as g
+import genjax_xla as g
 
 key = jax.random.key(0)
 

@@ -20,9 +20,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import genjax_tpu as g
-from genjax_tpu.gfi.requests import Regenerate
-from genjax_tpu.inference import (
+import genjax_xla as g
+from genjax_xla.gfi.requests import Regenerate
+from genjax_xla.inference import (
     ImportanceK,
     Target,
     enumerate_posterior,
@@ -68,7 +68,7 @@ assert abs(lz_est - float(exact.log_marginal)) < 0.1
 
 # --- 3. MH over the latents, validated against the oracle. -----------------
 # Prior-proposal Regenerate flips 'burglary' only ~1% of proposals, so
-# one chain mixes slowly — run 32 vmapped chains (the usual TPU answer).
+# one chain mixes slowly — run 32 vmapped chains (the usual accelerator answer).
 latents = (
     g.Selection.at["burglary"] | g.Selection.at["quake"]
     | g.Selection.at["alarm"]

@@ -9,14 +9,11 @@ evidence estimates are exact pseudo-marginal θ-weights, and θ-ensemble
 degeneracy triggers a PMMH rejuvenation (a fresh O(t) inner-filter
 re-run per proposal, so the move is an exact MH kernel).
 
-TPU-first details worth knowing:
+Details worth knowing:
 
-- the (N_θ, N_x) state grid advances with ONE fused
-  interval-contraction resample per step (`smc.resample_values_rows`):
-  systematic resampling AND the ancestor gather in a single reduce
-  fusion — no sorts, no gathers (TPU gathers cost ~8 ms per 1M
-  elements). `inner_impl="auto"` keeps the O(K log K) sort path on CPU
-  where the quadratic compare loses.
+- the (N_θ, N_x) state grid advances with one batched systematic
+  resample per step: merge-sort ancestors and a per-row gather, the
+  O(K log K) form.
 - the PMMH re-run is a dynamic-trip `fori_loop` behind the degeneracy
   `lax.cond`: a rejuvenation at time t costs t inner steps, not T.
 - do NOT `jax.vmap` whole SMC² runs (vmap turns the cond into
@@ -33,8 +30,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from genjax_tpu.inference.smc2 import smc2
-from genjax_tpu.models.ssm import (
+from genjax_xla.inference.smc2 import smc2
+from genjax_xla.models.ssm import (
     lgssm_grid_posterior,
     simulate_lgssm_data,
 )

@@ -3,8 +3,8 @@
 import jax
 import jax.numpy as jnp
 
-import genjax_tpu as g
-from genjax_tpu.inference import ImportanceK, Target
+import genjax_xla as g
+from genjax_xla.inference import ImportanceK, Target
 
 
 @g.gen

@@ -4,7 +4,7 @@ oracle on the linear special case."""
 import jax
 import jax.numpy as jnp
 
-from genjax_tpu.inference.pf import particle_filter
+from genjax_xla.inference.pf import particle_filter
 
 
 def init(key):

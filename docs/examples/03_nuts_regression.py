@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import genjax_tpu as g
-from genjax_tpu.inference import Target, run_nuts, split_rhat, summarize
+import genjax_xla as g
+from genjax_xla.inference import Target, run_nuts, split_rhat, summarize
 
 
 xs = jnp.linspace(-1.0, 1.0, 30)

@@ -3,8 +3,8 @@ ELBO gradient descent."""
 
 import jax
 
-import genjax_tpu as g
-from genjax_tpu.inference import Target, marginal, vi
+import genjax_xla as g
+from genjax_xla.inference import Target, marginal, vi
 
 
 @g.gen

@@ -4,9 +4,9 @@ on CPU to simulate a pod slice."""
 
 import jax
 
-import genjax_tpu as g
-from genjax_tpu.inference import Target
-from genjax_tpu.parallel import particle_mesh, sharded_smc_step
+import genjax_xla as g
+from genjax_xla.inference import Target
+from genjax_xla.parallel import particle_mesh, sharded_smc_step
 
 
 @g.gen

@@ -4,8 +4,8 @@ counterfactuals."""
 import jax
 import jax.numpy as jnp
 
-import genjax_tpu as g
-from genjax_tpu.core.compiler.interpreters.time_travel import (
+import genjax_xla as g
+from genjax_xla.core.compiler.interpreters.time_travel import (
     rec,
     time_machine,
 )

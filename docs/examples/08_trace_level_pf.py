@@ -4,8 +4,8 @@ one step at a time through the GFI (O(1) per step via IndexRequest)."""
 import jax
 import jax.numpy as jnp
 
-from genjax_tpu.inference import trace_particle_filter
-from genjax_tpu.models import kalman_filter, lgssm_model
+from genjax_xla.inference import trace_particle_filter
+from genjax_xla.models import kalman_filter, lgssm_model
 
 if __name__ == "__main__":
     a, q, r, T = 0.9, 0.5, 0.3, 10

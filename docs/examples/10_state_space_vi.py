@@ -4,8 +4,8 @@ sites inside scan differentiate pathwise through ADEV."""
 import jax
 import jax.numpy as jnp
 
-import genjax_tpu as g
-from genjax_tpu.inference import Target, marginal, vi
+import genjax_xla as g
+from genjax_xla.inference import Target, marginal, vi
 
 T = 5
 obs = jnp.full(T, 2.0)

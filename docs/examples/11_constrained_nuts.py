@@ -12,9 +12,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import genjax_tpu as g
-from genjax_tpu.inference import Target, run_nuts
-from genjax_tpu.inference.transforms import infer_transforms
+import genjax_xla as g
+from genjax_xla.inference import Target, run_nuts
+from genjax_xla.inference.transforms import infer_transforms
 
 # -- Dirichlet-categorical: a simplex latent -------------------------------
 

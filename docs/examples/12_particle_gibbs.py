@@ -6,13 +6,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import genjax_tpu as g
-from genjax_tpu.inference import particle_gibbs, trace_particle_gibbs
-from genjax_tpu.models import kalman_smoother
+import genjax_xla as g
+from genjax_xla.inference import particle_gibbs, trace_particle_gibbs
+from genjax_xla.models import kalman_smoother
 
 if __name__ == "__main__":
     A, Q, R, T = 0.9, 0.5, 0.5, 10
-    from genjax_tpu.models import simulate_lgssm_data
+    from genjax_xla.models import simulate_lgssm_data
 
     _, ys = simulate_lgssm_data(jax.random.key(7), A, Q, R, T)
 

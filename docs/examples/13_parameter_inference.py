@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from genjax_tpu.inference import particle_filter, pmmh, smc2
-from genjax_tpu.models import lgssm_grid_posterior, simulate_lgssm_data
+from genjax_xla.inference import particle_filter, pmmh, smc2
+from genjax_xla.models import lgssm_grid_posterior, simulate_lgssm_data
 
 if __name__ == "__main__":
     A_TRUE, Q, R, T = 0.7, 0.4, 0.4, 50

@@ -1,4 +1,4 @@
-"""Pod-scale inference patterns (round 3 product paths).
+"""Multi-device inference patterns (the sharded product paths).
 
 Three pieces on one mesh:
 1. the explicit-collective sharded particle filter — deterministic
@@ -10,7 +10,7 @@ Three pieces on one mesh:
    device set with `mesh_place`.
 
 Run with ``XLA_FLAGS=--xla_force_host_platform_device_count=8`` on CPU
-to simulate a pod slice; the same code targets a real slice unchanged.
+to simulate eight devices; the same code targets real devices unchanged.
 """
 
 import jax
@@ -18,9 +18,9 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh
 
-import genjax_tpu as g
-from genjax_tpu.inference import Target, run_nuts
-from genjax_tpu.parallel import particle_mesh, sharded_particle_filter
+import genjax_xla as g
+from genjax_xla.inference import Target, run_nuts
+from genjax_xla.parallel import particle_mesh, sharded_particle_filter
 
 
 def sharded_filter_demo():
@@ -71,7 +71,7 @@ def sharded_nuts_demo():
 
 
 def elastic_demo(final):
-    from genjax_tpu.utils.failure import mesh_place
+    from genjax_xla.utils.failure import mesh_place
 
     half = jax.devices()[: len(jax.devices()) // 2]
     placed = mesh_place("particles")(final, half)

@@ -5,7 +5,7 @@ Two inference families this framework adds beyond the reference
 hierarchical model, cross-checked against each other and NUTS:
 
 - **SVGD** fits a deterministic particle ensemble by kernelized Stein
-  descent — every update is a dense (N, N) MXU contraction, no
+  descent — every update is a dense (N, N) matrix contraction, no
   accept/reject, no step-size adaptation.
 - **Elliptical slice sampling** moves Gaussian-prior latents with zero
   tuning — the ellipse is drawn from the model's own prior via the GFI
@@ -17,8 +17,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import genjax_tpu as g
-from genjax_tpu.inference import (
+import genjax_xla as g
+from genjax_xla.inference import (
     EllipticalSlice,
     Target,
     mh,

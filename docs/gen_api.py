@@ -1,4 +1,4 @@
-"""API-reference generator: walks the public ``genjax_tpu`` namespaces
+"""API-reference generator: walks the public ``genjax_xla`` namespaces
 and emits a Markdown reference per module into ``docs/api/`` plus a
 self-contained rendered HTML site at ``docs/site/api.html``.
 
@@ -23,49 +23,48 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 MODULES = [
-    ("genjax_tpu", "Top-level facade: @gen, distributions, C/S builders"),
-    ("genjax_tpu.core.pytree", "Pytree substrate"),
-    ("genjax_tpu.core.compiler.staging", "Staging / jaxpr utilities"),
-    ("genjax_tpu.gfi.gfn", "Generative-function interface (GFI)"),
-    ("genjax_tpu.gfi.choice_map", "ChoiceMap algebra"),
-    ("genjax_tpu.gfi.selection", "Selection algebra"),
-    ("genjax_tpu.gfi.mask", "Mask (existence uncertainty)"),
-    ("genjax_tpu.gfi.requests", "Edit requests"),
-    ("genjax_tpu.lang.static", "@gen static DSL"),
-    ("genjax_tpu.lang.distributions.stdlib", "Distribution library"),
-    ("genjax_tpu.lang.combinators.vmap", "Vmap combinator"),
-    ("genjax_tpu.lang.combinators.scan", "Scan combinator"),
-    ("genjax_tpu.lang.combinators.switch", "Switch combinator"),
-    ("genjax_tpu.inference.sp", "Targets / stochastic probability"),
-    ("genjax_tpu.inference.smc", "SMC / resampling"),
-    ("genjax_tpu.inference.pf", "Particle filtering"),
-    ("genjax_tpu.inference.smc2", "SMC² (joint param+state)"),
-    ("genjax_tpu.inference.mcmc", "MCMC drivers"),
-    ("genjax_tpu.inference.adaptation", "NUTS warmup adaptation"),
-    ("genjax_tpu.inference.vi", "Variational inference"),
-    ("genjax_tpu.inference.transforms", "Support transforms"),
-    ("genjax_tpu.adev.core", "ADEV core"),
-    ("genjax_tpu.adev.primitives", "ADEV gradient strategies"),
-    ("genjax_tpu.parallel.mesh", "Device meshes"),
-    ("genjax_tpu.parallel.collectives", "Explicit collectives"),
-    ("genjax_tpu.parallel.smc", "Sharded SMC"),
-    ("genjax_tpu.parallel.pf", "Sharded particle filter"),
-    ("genjax_tpu.parallel.seq", "Sequence parallelism (time sharding)"),
-    ("genjax_tpu.parallel.svgd", "Mesh-sharded SVGD"),
-    ("genjax_tpu.ops.resample", "Blocked-expansion resampling kernel"),
-    ("genjax_tpu.ops.cdf_counts", "Pallas CDF→counts kernel"),
-    ("genjax_tpu.ops.mxu", "bf16 MXU contraction (f32 accumulation)"),
-    ("genjax_tpu.utils.checkpoint", "Checkpointing"),
-    ("genjax_tpu.utils.failure", "Failure detection / elastic recovery"),
-    ("genjax_tpu.utils.diagnostics_doc", None),  # placeholder, skipped
-    ("genjax_tpu.inference.svgd", "Stein variational gradient descent"),
-    ("genjax_tpu.inference.requests.ess", "Elliptical slice sampling"),
-    ("genjax_tpu.inference.predictive", "Posterior predictive sampling"),
-    ("genjax_tpu.inference.enumerative", "Exact enumerative posteriors"),
-    ("genjax_tpu.inference.diagnostics", "Convergence diagnostics"),
-    ("genjax_tpu.models", "Model families with exact oracles"),
-    ("genjax_tpu.models.slds", "Switching LDS + Rao-Blackwellized PF"),
-    ("genjax_tpu.compat", "Reference-migration shims"),
+    ("genjax_xla", "Top-level facade: @gen, distributions, C/S builders"),
+    ("genjax_xla.core.pytree", "Pytree substrate"),
+    ("genjax_xla.core.compiler.staging", "Staging / jaxpr utilities"),
+    ("genjax_xla.gfi.gfn", "Generative-function interface (GFI)"),
+    ("genjax_xla.gfi.choice_map", "ChoiceMap algebra"),
+    ("genjax_xla.gfi.selection", "Selection algebra"),
+    ("genjax_xla.gfi.mask", "Mask (existence uncertainty)"),
+    ("genjax_xla.gfi.requests", "Edit requests"),
+    ("genjax_xla.lang.static", "@gen static DSL"),
+    ("genjax_xla.lang.distributions.stdlib", "Distribution library"),
+    ("genjax_xla.lang.combinators.vmap", "Vmap combinator"),
+    ("genjax_xla.lang.combinators.scan", "Scan combinator"),
+    ("genjax_xla.lang.combinators.switch", "Switch combinator"),
+    ("genjax_xla.inference.sp", "Targets / stochastic probability"),
+    ("genjax_xla.inference.smc", "SMC / resampling"),
+    ("genjax_xla.inference.pf", "Particle filtering"),
+    ("genjax_xla.inference.smc2", "SMC² (joint param+state)"),
+    ("genjax_xla.inference.mcmc", "MCMC drivers"),
+    ("genjax_xla.inference.adaptation", "NUTS warmup adaptation"),
+    ("genjax_xla.inference.vi", "Variational inference"),
+    ("genjax_xla.inference.transforms", "Support transforms"),
+    ("genjax_xla.adev.core", "ADEV core"),
+    ("genjax_xla.adev.primitives", "ADEV gradient strategies"),
+    ("genjax_xla.parallel.mesh", "Device meshes"),
+    ("genjax_xla.parallel.collectives", "Explicit collectives"),
+    ("genjax_xla.parallel.smc", "Sharded SMC"),
+    ("genjax_xla.parallel.pf", "Sharded particle filter"),
+    ("genjax_xla.parallel.seq", "Sequence parallelism (time sharding)"),
+    ("genjax_xla.parallel.svgd", "Mesh-sharded SVGD"),
+    ("genjax_xla.ops.logmatmul", "Log-space matrix product"),
+    ("genjax_xla.ops.mxu", "bf16-operand contraction (f32 accumulation)"),
+    ("genjax_xla.utils.checkpoint", "Checkpointing"),
+    ("genjax_xla.utils.failure", "Failure detection / elastic recovery"),
+    ("genjax_xla.utils.diagnostics_doc", None),  # placeholder, skipped
+    ("genjax_xla.inference.svgd", "Stein variational gradient descent"),
+    ("genjax_xla.inference.requests.ess", "Elliptical slice sampling"),
+    ("genjax_xla.inference.predictive", "Posterior predictive sampling"),
+    ("genjax_xla.inference.enumerative", "Exact enumerative posteriors"),
+    ("genjax_xla.inference.diagnostics", "Convergence diagnostics"),
+    ("genjax_xla.models", "Model families with exact oracles"),
+    ("genjax_xla.models.slds", "Switching LDS + Rao-Blackwellized PF"),
+    ("genjax_xla.compat", "Reference-migration shims"),
 ]
 
 
@@ -81,7 +80,7 @@ def _public_members(mod):
         if inspect.ismodule(obj):
             continue
         defined_in = getattr(obj, "__module__", mod.__name__)
-        if defined_in and not str(defined_in).startswith("genjax_tpu"):
+        if defined_in and not str(defined_in).startswith("genjax_xla"):
             # Re-exported third-party (jax etc.): list name only.
             out.append((n, obj, False))
         else:
@@ -191,7 +190,7 @@ def main() -> None:
     os.makedirs(api_dir, exist_ok=True)
     os.makedirs(site_dir, exist_ok=True)
 
-    index = ["# genjax_tpu API reference", "",
+    index = ["# genjax_xla API reference", "",
              "Generated by `python docs/gen_api.py`.", ""]
     html_sections = []
     for modname, blurb in MODULES:
@@ -218,9 +217,9 @@ def main() -> None:
     )
     page = (
         "<!doctype html><html><head><meta charset='utf-8'>"
-        "<title>genjax_tpu API reference</title>"
+        "<title>genjax_xla API reference</title>"
         f"<style>{STYLE}</style></head><body>"
-        f"<h1>genjax_tpu API reference</h1><nav>{nav}</nav>"
+        f"<h1>genjax_xla API reference</h1><nav>{nav}</nav>"
         + "\n".join(html_sections)
         + "</body></html>"
     )

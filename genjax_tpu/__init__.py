@@ -1,128 +1,39 @@
-"""genjax_tpu: TPU-native probabilistic programming with programmable
-inference, built on JAX / XLA / pjit / shard_map / Pallas.
+"""Deprecated alias of :mod:`genjax_xla`, the package's current name.
 
-Public facade. Functional parity target: ``/root/reference/src/genjax/
-__init__.py`` (the Gen generative function interface, distributions,
-combinators, and inference library), re-architected TPU-first.
-"""
+Importing this package, or any submodule under it, warns once and hands
+back the very module objects of ``genjax_xla``: classes, registries and
+pytree types are shared, so code that mixes old and new imports still
+agrees on ``isinstance`` and on tree structure."""
 
-from genjax_tpu.core.checks import do_checkify, optional_check
-from genjax_tpu.core.pytree import Closure, Const, Pytree, PythonicPytree
-from genjax_tpu.core.compiler.staging import (
-    FlagOp,
-    empty_trace,
-    multi_switch,
-    stage,
-    to_shape_fn,
-    tree_choose,
-)
-from genjax_tpu.core.compiler.interpreters.incremental import (
-    Diff,
-    NoChange,
-    UnknownChange,
-    incremental,
-)
-from genjax_tpu.gfi.choice_map import (
-    C,
-    ChoiceMap,
-    ChoiceMapBuilder,
-    ChoiceMapNoValueAtAddress,
-)
-from genjax_tpu.gfi.concepts import (
-    Argdiffs,
-    EditRequest,
-    IndexRequest,
-    NotSupportedEditRequest,
-    PrimitiveEditRequest,
-    Retdiff,
-    Score,
-    Weight,
-)
-from genjax_tpu.gfi.gfn import (
-    GenerativeFunction,
-    GenerativeFunctionClosure,
-    Trace,
-)
-from genjax_tpu.gfi.mask import Mask
-from genjax_tpu.gfi.requests import (
-    DiffAnnotate,
-    EmptyRequest,
-    Regenerate,
-    Update,
-)
-from genjax_tpu.gfi.selection import Selection
-from genjax_tpu.lang.static import (
-    AddressReuse,
-    Fn,
-    MissingAddress,
-    StaticRequest,
-    StaticTrace,
-    gen,
-)
-from genjax_tpu.lang.distributions import *  # noqa: F401,F403
-from genjax_tpu.lang.distributions import __all__ as _dist_all
-from genjax_tpu.lang.combinators import *  # noqa: F401,F403
-from genjax_tpu.lang.combinators import __all__ as _comb_all
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+import warnings
 
-# Subpackage re-exports for `g.inference...` style access.
-from genjax_tpu import adev, inference, models, ops, parallel, utils  # noqa: E402,F401
+_NEW = "genjax_xla"
+_OLD = __name__
 
-#: ``S`` — the selection builder: ``S["x"]``, ``S.all()``, ...
-S = Selection
 
-__version__ = "0.1.0"
+class _AliasFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves ``<old>.x.y`` to the already-importable ``genjax_xla.x.y``."""
 
-__all__ = [
-    "AddressReuse",
-    "adev",
-    "inference",
-    "models",
-    "ops",
-    "parallel",
-    "utils",
-    "Argdiffs",
-    "C",
-    "ChoiceMap",
-    "ChoiceMapBuilder",
-    "ChoiceMapNoValueAtAddress",
-    "Closure",
-    "Const",
-    "Diff",
-    "DiffAnnotate",
-    "EditRequest",
-    "EmptyRequest",
-    "Fn",
-    "FlagOp",
-    "GenerativeFunction",
-    "GenerativeFunctionClosure",
-    "IndexRequest",
-    "Mask",
-    "MissingAddress",
-    "NoChange",
-    "NotSupportedEditRequest",
-    "PrimitiveEditRequest",
-    "Pytree",
-    "PythonicPytree",
-    "Regenerate",
-    "Retdiff",
-    "S",
-    "Score",
-    "Selection",
-    "StaticRequest",
-    "StaticTrace",
-    "Trace",
-    "UnknownChange",
-    "Update",
-    "Weight",
-    "do_checkify",
-    "empty_trace",
-    "gen",
-    "incremental",
-    "multi_switch",
-    "optional_check",
-    "stage",
-    "to_shape_fn",
-    "tree_choose",
-    *_dist_all,
-    *_comb_all,
-]
+    def find_spec(self, fullname, path=None, target=None):
+        if fullname.startswith(_OLD + "."):
+            return importlib.util.spec_from_loader(fullname, self)
+        return None
+
+    def create_module(self, spec):
+        return importlib.import_module(_NEW + spec.name[len(_OLD):])
+
+    def exec_module(self, module):
+        pass
+
+
+warnings.warn(
+    f"{_OLD} has been renamed {_NEW}; import {_NEW} instead",
+    DeprecationWarning,
+    stacklevel=2,
+)
+sys.meta_path.insert(0, _AliasFinder())
+sys.modules[_OLD] = importlib.import_module(_NEW)

@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from genjax_tpu.adev import (
+from genjax_xla.adev import (
     Dual,
     add_cost,
     baseline,
@@ -421,8 +421,8 @@ class TestReviewRegressions:
         """Plain (non-interpreted) sampling of a vmapped REINFORCE
         site must honor the caller's key (previously rebound to the
         default key(0) — frozen across all keys)."""
-        from genjax_tpu.adev.core import sample_primitive
-        from genjax_tpu.adev import primitives as prims
+        from genjax_xla.adev.core import sample_primitive
+        from genjax_xla.adev import primitives as prims
 
         def draw(key):
             return jax.vmap(
@@ -440,7 +440,7 @@ class TestReviewRegressions:
         """The sampler must broadcast eps over parameter shape (a
         scalar eps perfectly correlates components while the summed
         logpdf scores them as independent)."""
-        from genjax_tpu.adev import primitives as prims
+        from genjax_xla.adev import primitives as prims
 
         v = prims.normal_reinforce.sample(
             jax.random.key(0), jnp.zeros(8), jnp.ones(8)
@@ -457,8 +457,8 @@ def test_reparam_in_scan_with_threaded_keys_exact():
     """The recommended scan pattern: scan over split keys and bind
     key=... per site — fresh eps per step AND per estimate. For the
     linear walk the pathwise gradient is exactly 1 per step."""
-    from genjax_tpu.adev import primitives as prims
-    from genjax_tpu.adev.core import sample_primitive
+    from genjax_xla.adev import primitives as prims
+    from genjax_xla.adev.core import sample_primitive
 
     @expectation
     def loss(mu, keys):
@@ -590,8 +590,8 @@ class TestScanFreshKeys:
         r3): with all randomness user-keyed, estimates are bitwise
         deterministic across interpreter keys, and the key chain stays
         on the user's bitstream."""
-        from genjax_tpu.adev import primitives as prims
-        from genjax_tpu.adev.core import sample_primitive
+        from genjax_xla.adev import primitives as prims
+        from genjax_xla.adev.core import sample_primitive
 
         k0 = jax.random.key(42)
 
@@ -668,8 +668,8 @@ class TestRekeyContractProperties:
         """An @expectation program summing user-keyed normal_reparam
         draws arranged per ``structure``; optionally adds one
         default-keyed site at the end."""
-        from genjax_tpu.adev import primitives as prims
-        from genjax_tpu.adev.core import sample_primitive
+        from genjax_xla.adev import primitives as prims
+        from genjax_xla.adev.core import sample_primitive
 
         @expectation
         def loss(mu):

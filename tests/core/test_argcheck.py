@@ -5,7 +5,7 @@ with typed messages instead of late raw JAX errors)."""
 import jax.numpy as jnp
 import pytest
 
-import genjax_tpu as g
+import genjax_xla as g
 
 
 @g.gen
@@ -30,7 +30,7 @@ class TestCombinatorChecks:
         with pytest.raises(TypeError, match="GenerativeFunction"):
             unit.switch(lambda: 1.0)
         with pytest.raises(ValueError, match="at least one"):
-            from genjax_tpu.lang.combinators.switch import switch
+            from genjax_xla.lang.combinators.switch import switch
 
             switch()
 
@@ -78,8 +78,8 @@ class TestCompatShims:
     def test_implicit_logit_warning(self):
         import warnings
 
-        import genjax_tpu as g
-        from genjax_tpu.compat import implicit_logit_warning
+        import genjax_xla as g
+        from genjax_xla.compat import implicit_logit_warning
 
         b = implicit_logit_warning(g.bernoulli)
         with warnings.catch_warnings(record=True) as w:
@@ -97,4 +97,4 @@ class TestCompatShims:
             b(0.3, logits=0.1)
 
     def test_experimental_importable(self):
-        import genjax_tpu.experimental  # noqa: F401
+        import genjax_xla.experimental  # noqa: F401

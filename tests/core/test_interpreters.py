@@ -2,17 +2,17 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from genjax_tpu.core.compiler.initial_style_primitive import (
+from genjax_xla.core.compiler.initial_style_primitive import (
     InitialStylePrimitive,
     initial_style_bind,
 )
-from genjax_tpu.core.compiler.interpreters.incremental import (
+from genjax_xla.core.compiler.interpreters.incremental import (
     Diff,
     NoChange,
     UnknownChange,
     incremental,
 )
-from genjax_tpu.core.compiler.interpreters.stateful import (
+from genjax_xla.core.compiler.interpreters.stateful import (
     StatefulHandler,
     stateful,
 )

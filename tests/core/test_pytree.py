@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import jax.tree_util as jtu
 import pytest
 
-from genjax_tpu.core.pytree import Closure, Const, Pytree, PythonicPytree
+from genjax_xla.core.pytree import Closure, Const, Pytree, PythonicPytree
 
 
 @Pytree.dataclass

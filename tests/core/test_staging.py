@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from genjax_tpu.core.compiler.staging import (
+from genjax_xla.core.compiler.staging import (
     FlagOp,
     empty_value,
     multi_switch,

@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import jax.tree_util as jtu
 import numpy as np
 
-import genjax_tpu as g
-from genjax_tpu.core.compiler.taint import variant_leaf_mask
-from genjax_tpu.inference import Target
-from genjax_tpu.inference.smc import resample_tree
+import genjax_xla as g
+from genjax_xla.core.compiler.taint import variant_leaf_mask
+from genjax_xla.inference import Target
+from genjax_xla.inference.smc import resample_tree
 
 
 def test_basic_mask():
@@ -105,7 +105,7 @@ def test_resample_tree_invariant_bitwise():
 def test_tempered_smc_unchanged_by_skip(monkeypatch):
     """Wired-in skip must not change any sampler output bitwise (the
     skipped leaves are constant across particles)."""
-    from genjax_tpu.inference import smc_sampler
+    from genjax_xla.inference import smc_sampler
 
     ys = 0.5 + 0.3 * jax.random.normal(jax.random.key(0), (16,))
 

@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import genjax_tpu as g
-from genjax_tpu.core.validate import no_validation
+import genjax_xla as g
+from genjax_xla.core.validate import no_validation
 
 KEY = jax.random.key(0)
 

@@ -20,12 +20,12 @@ def test_generator_runs_and_covers_key_symbols(tmp_path):
     assert out.returncode == 0, out.stderr[-2000:]
     api = os.path.join(ROOT, "docs", "api")
     idx = open(os.path.join(api, "index.md")).read()
-    assert "genjax_tpu.inference.smc" in idx
-    gfn_md = open(os.path.join(api, "genjax_tpu_gfi_gfn.md")).read()
+    assert "genjax_xla.inference.smc" in idx
+    gfn_md = open(os.path.join(api, "genjax_xla_gfi_gfn.md")).read()
     for sym in ("simulate", "assess", "generate", "project", "edit"):
         assert sym in gfn_md, sym
     smc_md = open(
-        os.path.join(api, "genjax_tpu_inference_smc.md")
+        os.path.join(api, "genjax_xla_inference_smc.md")
     ).read()
     assert "ParticleCollection" in smc_md
     assert "resample_tree" in smc_md

@@ -2,13 +2,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from genjax_tpu.gfi.choice_map import (
+from genjax_xla.gfi.choice_map import (
     C,
     ChoiceMap,
     ChoiceMapNoValueAtAddress,
 )
-from genjax_tpu.gfi.mask import Mask
-from genjax_tpu.gfi.selection import Selection
+from genjax_xla.gfi.mask import Mask
+from genjax_xla.gfi.selection import Selection
 
 
 class TestConstruction:
@@ -181,7 +181,7 @@ class TestJitCompat:
 
 class TestInvalidSubset:
     def test_detects_typo(self):
-        import genjax_tpu as g
+        import genjax_xla as g
 
         @g.gen
         def model():
@@ -194,7 +194,7 @@ class TestInvalidSubset:
         assert invalid["tpyo"] == 2.0
 
     def test_all_valid_returns_none(self):
-        import genjax_tpu as g
+        import genjax_xla as g
 
         @g.gen
         def model():
@@ -214,8 +214,8 @@ class TestLanesLeading:
         import jax
         import jax.numpy as jnp
 
-        import genjax_tpu as g
-        from genjax_tpu.gfi.choice_map import lanes_leading
+        import genjax_xla as g
+        from genjax_xla.gfi.choice_map import lanes_leading
 
         T, B = 5, 3
 
@@ -270,7 +270,7 @@ class TestFullSliceBuilder:
         """Filter a full-slice constraint to one address and Update a
         repeat-model trace with it: only the selected address moves
         (parity: reference ``test_filtered_chm_update``)."""
-        import genjax_tpu as g
+        import genjax_xla as g
 
         @g.gen
         def f():
@@ -378,7 +378,7 @@ def test_invalid_subset_accepts_vmap_constraints():
     """Lane-membership masks from valid dynamic-index constraints are
     not 'typos' (review finding: concrete all-False masks previously
     reported as invalid values)."""
-    import genjax_tpu as g
+    import genjax_xla as g
 
     @g.gen
     def kernel(mu):
@@ -398,7 +398,7 @@ class TestLanesLeadingExplicitIdx:
 
     def test_explicit_idx_vmap_roundtrip(self):
         import numpy as np
-        from genjax_tpu.gfi.choice_map import (
+        from genjax_xla.gfi.choice_map import (
             Choice,
             Indexed,
             lanes_leading,
@@ -422,7 +422,7 @@ class TestLanesLeadingExplicitIdx:
         np.testing.assert_array_equal(np.asarray(val), np.asarray(want))
 
     def test_unbatched_explicit_idx_untouched(self):
-        from genjax_tpu.gfi.choice_map import (
+        from genjax_xla.gfi.choice_map import (
             Choice,
             Indexed,
             lanes_leading,
@@ -439,7 +439,7 @@ class TestLanesLeadingExplicitIdx:
         """A hand-stacked Indexed whose addresses genuinely differ per
         batch entry must raise, not silently retarget every lane to
         batch entry 0's addresses (ADVICE r3)."""
-        from genjax_tpu.gfi.choice_map import (
+        from genjax_xla.gfi.choice_map import (
             Choice,
             Indexed,
             lanes_leading,
@@ -453,7 +453,7 @@ class TestLanesLeadingExplicitIdx:
             lanes_leading(chm, 1)
 
     def test_invariant_concrete_idx_collapses(self):
-        from genjax_tpu.gfi.choice_map import (
+        from genjax_xla.gfi.choice_map import (
             Choice,
             Indexed,
             lanes_leading,

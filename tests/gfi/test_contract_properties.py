@@ -27,9 +27,9 @@ import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-import genjax_tpu as g
-from genjax_tpu.gfi.requests import Regenerate, Update
-from genjax_tpu.gfi.selection import Selection
+import genjax_xla as g
+from genjax_xla.gfi.requests import Regenerate, Update
+from genjax_xla.gfi.selection import Selection
 
 
 def _make_model(structure: str, mu: float):

@@ -10,8 +10,8 @@ import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-import genjax_tpu as g
-from genjax_tpu.gfi.mask import Mask
+import genjax_xla as g
+from genjax_xla.gfi.mask import Mask
 
 flags = st.booleans()
 values = st.floats(

@@ -3,9 +3,9 @@ import jax.numpy as jnp
 import pytest
 from jax.experimental import checkify
 
-from genjax_tpu.core.checks import do_checkify
-from genjax_tpu.gfi.mask import Mask
-from genjax_tpu.gfi.selection import Selection
+from genjax_xla.core.checks import do_checkify
+from genjax_xla.gfi.mask import Mask
+from genjax_xla.gfi.selection import Selection
 
 
 class TestSelection:

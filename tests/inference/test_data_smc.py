@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import genjax_tpu as g
-from genjax_tpu.inference import Target
-from genjax_tpu.inference.data_smc import data_annealed_smc
+import genjax_xla as g
+from genjax_xla.inference import Target
+from genjax_xla.inference.data_smc import data_annealed_smc
 
 KEY = jax.random.key(314159)
 

@@ -8,7 +8,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from genjax_tpu.inference.diagnostics import (
+from genjax_xla.inference.diagnostics import (
     ess_autocorr,
     split_rhat,
     summarize,

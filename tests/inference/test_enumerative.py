@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import genjax_tpu as g
-from genjax_tpu.inference import Target, enumerate_posterior
+import genjax_xla as g
+from genjax_xla.inference import Target, enumerate_posterior
 
 KEY = jax.random.key(99)
 
@@ -105,7 +105,7 @@ class TestCrossChecks:
         target = Target(m, (), g.C["y"].set(True))
         res = enumerate_posterior(target)
 
-        from genjax_tpu.inference import ImportanceK
+        from genjax_xla.inference import ImportanceK
 
         alg = ImportanceK(target, k_particles=4096)
         col = jax.jit(alg.run_smc)(KEY)

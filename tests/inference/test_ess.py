@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import genjax_tpu as g
-from genjax_tpu.inference import EllipticalSlice, Target, mh
-from genjax_tpu.inference.requests.ess import elliptical_slice_kernel
+import genjax_xla as g
+from genjax_xla.inference import EllipticalSlice, Target, mh
+from genjax_xla.inference.requests.ess import elliptical_slice_kernel
 
 KEY = jax.random.key(1618)
 

@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import jax.scipy.stats as jss
 import numpy as np
 
-import genjax_tpu as g
-from genjax_tpu.inference import MALA, chain, mh
+import genjax_xla as g
+from genjax_xla.inference import MALA, chain, mh
 
 KEY = jax.random.key(314159)
 

@@ -8,9 +8,9 @@ import numpy as np
 import pytest
 from scipy import stats as sps
 
-import genjax_tpu as g
-from genjax_tpu.inference import Target
-from genjax_tpu.inference.map_laplace import (
+import genjax_xla as g
+from genjax_xla.inference import Target
+from genjax_xla.inference.map_laplace import (
     laplace_approximation,
     map_optimize,
 )
@@ -54,7 +54,7 @@ class TestGaussianExact:
         assert abs(float(lap.log_z) - want_logz) < 1e-3
 
     def test_vmapped_restarts(self):
-        """Many random restarts in one program (TPU batching story)."""
+        """Many random restarts in one program (the batching story)."""
         tgt = self._target()
         keys = jax.random.split(KEY, 8)
         res = jax.jit(jax.vmap(

@@ -1,15 +1,15 @@
 """NUTS tests: kernel correctness on Gaussians, trace-level NUTS request,
 and end-to-end run_nuts with cross-chain warmup on a hierarchical
-regression (BASELINE config 2)."""
+regression (benchmark config 2)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-import genjax_tpu as g
-from genjax_tpu.inference import Target, mh
-from genjax_tpu.inference.adaptation import run_nuts, warmup_chains
-from genjax_tpu.inference.requests.nuts import NUTS, nuts_kernel
+import genjax_xla as g
+from genjax_xla.inference import Target, mh
+from genjax_xla.inference.adaptation import run_nuts, warmup_chains
+from genjax_xla.inference.requests.nuts import NUTS, nuts_kernel
 
 KEY = jax.random.key(314159)
 
@@ -76,7 +76,7 @@ class TestTraceRequest:
         def kernel(key, trace):
             return mh(key, trace, NUTS(g.S.at["mu"], 0.3, 6))
 
-        from genjax_tpu.inference import chain
+        from genjax_xla.inference import chain
 
         runner = chain(kernel)
         _, mus = jax.jit(
@@ -92,7 +92,7 @@ class TestTraceRequest:
 
 class TestEndToEnd:
     def test_hierarchical_regression(self):
-        """BASELINE config 2: hierarchical linear regression, posterior
+        """Benchmark config 2: hierarchical linear regression, posterior
         slope recovery with cross-chain-adapted NUTS."""
         xs = jnp.linspace(-1.0, 1.0, 20)
         true_slope, true_icept = 2.0, -0.5
@@ -156,7 +156,7 @@ class TestSupportTransforms:
     def test_infer_transforms_from_support_metadata(self):
         """Support metadata on stdlib distributions drives automatic
         bijector selection, through nested @gen addresses."""
-        from genjax_tpu.inference.transforms import infer_transforms
+        from genjax_xla.inference.transforms import infer_transforms
 
         @g.gen
         def inner():
@@ -182,7 +182,7 @@ class TestSupportTransforms:
         assert "rate" not in t2 and "u" in t2
 
     def test_nested_address_transform_roundtrip(self):
-        from genjax_tpu.inference.transforms import (
+        from genjax_xla.inference.transforms import (
             constrain_choices,
             unconstrain_choices,
         )
@@ -220,7 +220,7 @@ class TestSupportTransforms:
         assert abs(np.asarray(chms["slope"]).mean() - 1.2) < 0.1
 
     def test_simplex_bijector_roundtrip_and_jacobian(self):
-        from genjax_tpu.inference.transforms import simplex
+        from genjax_xla.inference.transforms import simplex
 
         u = jnp.array([0.3, -0.7, 1.1])
         x = simplex.forward(u)
@@ -273,7 +273,7 @@ class TestSupportTransforms:
     def test_auto_transforms_with_mesh_sharded_chains(self):
         """transforms="auto" composes with mesh-sharded chains (the
         chain axis rides the 8-device CPU mesh)."""
-        from genjax_tpu.parallel import particle_mesh
+        from genjax_xla.parallel import particle_mesh
 
         xs = jnp.linspace(-1.0, 1.0, 15)
         ys = 0.8 * xs
@@ -301,7 +301,7 @@ class TestSupportTransforms:
 
     def test_dimap_site_transforms(self):
         """Dimap wrappers are transparent to support inference."""
-        from genjax_tpu.inference.transforms import infer_transforms
+        from genjax_xla.inference.transforms import infer_transforms
 
         @g.gen
         def inner(rate2):
@@ -320,7 +320,7 @@ class TestSupportTransforms:
         """Transforms reach sites inside Scan (Indexed layers are
         transparent): per-step positive latents stay positive and the
         fldj covers every step."""
-        from genjax_tpu.inference.transforms import (
+        from genjax_xla.inference.transforms import (
             constrain_choices,
             infer_transforms,
             positive,
@@ -390,7 +390,7 @@ class TestSupportTransforms:
             assert bool(np.isfinite(ss).all())
 
     def test_interval_transform_roundtrip(self):
-        from genjax_tpu.inference.transforms import (
+        from genjax_xla.inference.transforms import (
             constrain_choices,
             interval,
             unconstrain_choices,
@@ -436,7 +436,7 @@ class TestNUTSReviewRegressions:
                      num_warmup=5, num_samples=5)
 
     def test_zero_warmup_returns_eps0(self):
-        from genjax_tpu.inference.adaptation import warmup_chains
+        from genjax_xla.inference.adaptation import warmup_chains
 
         logd = lambda z: -0.5 * jnp.sum(z ** 2)
         _, eps, _ = warmup_chains(
@@ -449,9 +449,9 @@ class TestNUTSReviewRegressions:
 def test_chain_burnin_bitwise_vs_slice():
     """Two-scan burn-in (no stacked outputs during burn-in) is bitwise
     the single-scan collection's tail."""
-    from genjax_tpu.inference import chain, mh
-    from genjax_tpu.gfi.requests import Regenerate
-    from genjax_tpu.gfi.selection import Selection
+    from genjax_xla.inference import chain, mh
+    from genjax_xla.gfi.requests import Regenerate
+    from genjax_xla.gfi.selection import Selection
 
     @g.gen
     def m():

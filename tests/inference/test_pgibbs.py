@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from genjax_tpu.inference.pgibbs import (
+from genjax_xla.inference.pgibbs import (
     conditional_bootstrap_filter,
     particle_gibbs,
 )
-from genjax_tpu.models.ssm import kalman_filter, kalman_smoother
+from genjax_xla.models.ssm import kalman_filter, kalman_smoother
 
 KEY = jax.random.key(314159)
 A, Q, R = 0.9, 0.5, 0.5
@@ -142,7 +142,7 @@ class TestTraceParticleGibbs:
     RTS smoother (mu0=0, p0=0: x_1 ~ N(0, Q))."""
 
     def _model(self, t=10):
-        import genjax_tpu as g
+        import genjax_xla as g
 
         @g.gen
         def step(carry, _):
@@ -154,7 +154,7 @@ class TestTraceParticleGibbs:
         return step.scan(n=t), (0.0, None)
 
     def test_matches_smoother(self):
-        from genjax_tpu.inference.pgibbs import trace_particle_gibbs
+        from genjax_xla.inference.pgibbs import trace_particle_gibbs
 
         t = 10
         ys = YS[:t]
@@ -171,7 +171,7 @@ class TestTraceParticleGibbs:
         assert serr.max() < 0.15, serr
 
     def test_logz_near_kalman(self):
-        from genjax_tpu.inference.pgibbs import trace_particle_gibbs
+        from genjax_xla.inference.pgibbs import trace_particle_gibbs
 
         t = 10
         ys = YS[:t]
@@ -190,8 +190,8 @@ class TestTraceParticleGibbs:
         fresh draw must equal the reference bitwise (pinning +
         conditional resampling + future refresh + assimilation leave
         the retained lane intact end to end)."""
-        import genjax_tpu as g
-        from genjax_tpu.inference.pgibbs import trace_csmc
+        import genjax_xla as g
+        from genjax_xla.inference.pgibbs import trace_csmc
 
         t = 6
 
@@ -228,7 +228,7 @@ class TestTracePGAS:
         return jnp.stack(ys)
 
     def _model(self, t):
-        import genjax_tpu as g
+        import genjax_xla as g
 
         @g.gen
         def step(carry, _):
@@ -240,7 +240,7 @@ class TestTracePGAS:
         return step.scan(n=t)
 
     def test_pgas_mixes_and_matches_smoother(self):
-        from genjax_tpu.inference.pgibbs import trace_particle_gibbs
+        from genjax_xla.inference.pgibbs import trace_particle_gibbs
 
         t = 40
         ys = self._series(t)

@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from genjax_tpu.inference.pmmh import gaussian_walk_proposal, pmmh
-from genjax_tpu.inference.pf import particle_filter
-from genjax_tpu.models.ssm import (
+from genjax_xla.inference.pmmh import gaussian_walk_proposal, pmmh
+from genjax_xla.inference.pf import particle_filter
+from genjax_xla.models.ssm import (
     lgssm_grid_posterior,
     simulate_lgssm_data,
 )
@@ -109,8 +109,8 @@ def test_pmmh_with_trace_level_estimator():
     GFI-native trace_particle_filter's logZ on an @gen Scan model whose
     transition coefficient is the sampled parameter — no hand-written
     kernels anywhere in the chain."""
-    import genjax_tpu as g
-    from genjax_tpu.inference import trace_particle_filter
+    import genjax_xla as g
+    from genjax_xla.inference import trace_particle_filter
 
     t = 20
     ys20 = YS[:t]

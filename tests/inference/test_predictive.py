@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import genjax_tpu as g
-from genjax_tpu.inference import (
+import genjax_xla as g
+from genjax_xla.inference import (
     Target,
     posterior_predictive,
     run_nuts,

@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import genjax_tpu as g
-from genjax_tpu.inference import Target
-from genjax_tpu.inference.pt import parallel_tempering
-from genjax_tpu.inference.requests.rejuvenate import Rejuvenate
+import genjax_xla as g
+from genjax_xla.inference import Target
+from genjax_xla.inference.pt import parallel_tempering
+from genjax_xla.inference.requests.rejuvenate import Rejuvenate
 
 KEY = jax.random.key(314159)
 
@@ -98,7 +98,7 @@ class TestMultimodalMixing:
         # Control: a true single chain with the same local kernel is
         # stuck in whichever mode it starts in (the barrier at x=0 is
         # ~32 nats deep).
-        from genjax_tpu.inference import chain, mh
+        from genjax_xla.inference import chain, mh
 
         tr0, _ = bimodal.generate(
             jax.random.key(11), g.C["y"].set(4.0), ()
@@ -132,7 +132,7 @@ class TestMultimodalMixing:
 
 class TestSwapMechanics:
     def test_pair_swap_is_an_involution(self):
-        from genjax_tpu.inference.pt import _pair_swap
+        from genjax_xla.inference.pt import _pair_swap
 
         tree = {"a": jnp.arange(6.0), "b": jnp.arange(12.0).reshape(6, 2)}
         acc = jnp.array([True, False, True, False, False, False])

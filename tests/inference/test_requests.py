@@ -10,8 +10,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import genjax_tpu as g
-from genjax_tpu.inference import HMC, Rejuvenate, chain, mh
+import genjax_xla as g
+from genjax_xla.inference import HMC, Rejuvenate, chain, mh
 
 KEY = jax.random.key(314159)
 
@@ -154,7 +154,7 @@ class TestMHConvergence:
 
 class TestMultiChain:
     def test_multi_chain_runner(self):
-        from genjax_tpu.inference import multi_chain
+        from genjax_xla.inference import multi_chain
 
         obs_std = 0.5
 

@@ -11,15 +11,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import genjax_tpu as g
-from genjax_tpu.inference import (
+import genjax_xla as g
+from genjax_xla.inference import (
     Importance,
     ImportanceK,
     Target,
     effective_sample_size,
     resample_indices,
 )
-from genjax_tpu.inference.smc import resample_indices_rows
+from genjax_xla.inference.smc import resample_indices_rows
 
 KEY = jax.random.key(314159)
 
@@ -394,121 +394,69 @@ class TestRowResampling:
             )
 
 
-class TestFusedValueResample:
-    """resample_values / resample_values_rows (round 5): the fused
-    interval contraction must reproduce the searchsorted inversion of
-    its own cumulative counts exactly, for 1-D and event-dim leaves,
-    plain and under vmap."""
+class TestSortedResample:
+    """Single-row sort-based ancestor draw (`resample_indices_sorted`),
+    the vmap-friendly primitive of SMC²'s per-θ inner-filter re-runs."""
 
-    def _oracle(self, cc, values):
-        import numpy as np
+    @staticmethod
+    def _grid(key, n, method):
+        if method == "systematic":
+            return (jax.random.uniform(key, ()) + jnp.arange(n)) / n
+        if method == "stratified":
+            return (jax.random.uniform(key, (n,)) + jnp.arange(n)) / n
+        es = jax.random.exponential(key, (n + 1,))
+        return jnp.cumsum(es)[:-1] / jnp.sum(es)
 
-        cc = np.asarray(cc, np.int64)
-        anc = np.searchsorted(cc, np.arange(len(values)), side="right")
-        return np.asarray(values)[np.clip(anc, 0, len(values) - 1)]
+    @pytest.mark.parametrize("method", ["systematic", "stratified",
+                                        "multinomial"])
+    @pytest.mark.parametrize("seed,scale", [(0, 1.0), (1, 4.0), (2, 0.1)])
+    def test_matches_searchsorted_oracle(self, method, seed, scale):
+        """Bitwise vs numpy searchsorted(side='right') of the same CDF
+        and the same grid: the merge sort counts #{cum <= u}."""
+        from genjax_xla.inference.smc import resample_indices_sorted
 
-    def test_single_row_matches_counts_oracle(self):
-        import numpy as np
+        k, n = 256, 200
+        key = jax.random.key(seed)
+        lw = jax.random.normal(jax.random.fold_in(key, 1), (k,)) * scale
+        got = np.asarray(jax.jit(
+            lambda kk, w: resample_indices_sorted(kk, w, n, method)
+        )(key, lw))
+        cum = np.asarray(jnp.cumsum(jax.nn.softmax(lw)))
+        us = np.asarray(self._grid(key, n, method))
+        want = np.clip(np.searchsorted(cum, us, side="right"), 0, k - 1)
+        np.testing.assert_array_equal(got, want)
 
-        from genjax_tpu.inference.smc import (
-            _systematic_counts_cum_row,
-            resample_values,
-        )
-
-        for seed, scale in [(0, 1.0), (1, 4.0), (2, 0.1)]:
-            key = jax.random.key(seed)
-            lw = jax.random.normal(jax.random.fold_in(key, 1), (256,)) * scale
-            xs = jax.random.normal(jax.random.fold_in(key, 2), (256,))
-            got = jax.jit(
-                lambda k, w, v: resample_values(k, w, v, 256)
-            )(key, lw, xs)
-            cc = _systematic_counts_cum_row(key, lw, 256)
-            np.testing.assert_array_equal(
-                np.asarray(got), self._oracle(cc, xs)
-            )
-
-    def test_degenerate_weights(self):
-        import numpy as np
-
-        from genjax_tpu.inference.smc import resample_values
+    @pytest.mark.parametrize("method", ["systematic", "stratified",
+                                        "multinomial"])
+    def test_degenerate_weights(self, method):
+        from genjax_xla.inference.smc import resample_indices_sorted
 
         lw = jnp.full((128,), -1e9).at[5].set(0.0)
-        xs = jnp.arange(128.0)
-        got = resample_values(jax.random.key(3), lw, xs, 128)
-        np.testing.assert_array_equal(np.asarray(got), np.full(128, 5.0))
+        got = resample_indices_sorted(jax.random.key(3), lw, 128, method)
+        np.testing.assert_array_equal(np.asarray(got), np.full(128, 5))
 
-    def test_rows_match_vmapped_single(self):
-        import numpy as np
-
-        from genjax_tpu.inference.smc import (
-            resample_values,
-            resample_values_rows,
-        )
-
-        key = jax.random.key(7)
-        lw = jax.random.normal(jax.random.fold_in(key, 1), (8, 64))
-        xs = jax.random.normal(jax.random.fold_in(key, 2), (8, 64))
-        rows = resample_values_rows(key, lw, xs, 64)
-        assert np.asarray(rows).shape == (8, 64)
-        # Every output value is one of its own row's inputs, and
-        # high-weight particles multiply.
-        xs_np, out_np = np.asarray(xs), np.asarray(rows)
-        for r in range(8):
-            assert set(out_np[r]).issubset(set(xs_np[r]))
-
-    def test_event_dim_leaves_and_tree(self):
-        import numpy as np
-
-        from genjax_tpu.inference.smc import resample_values
-
-        key = jax.random.key(9)
-        lw = jax.random.normal(jax.random.fold_in(key, 1), (64,))
-        tree = {
-            "x": jax.random.normal(jax.random.fold_in(key, 2), (64,)),
-            "v": jax.random.normal(jax.random.fold_in(key, 3), (64, 3)),
-        }
-        out = resample_values(key, lw, tree, 64)
-        from genjax_tpu.inference.smc import _systematic_counts_cum_row
-
-        cc = _systematic_counts_cum_row(key, lw, 64)
-        anc = np.searchsorted(
-            np.asarray(cc, np.int64), np.arange(64), side="right"
-        ).clip(0, 63)
-        np.testing.assert_array_equal(
-            np.asarray(out["x"]), np.asarray(tree["x"])[anc]
-        )
-        np.testing.assert_array_equal(
-            np.asarray(out["v"]), np.asarray(tree["v"])[anc]
-        )
-
-    def test_vmap_composes(self):
-        from genjax_tpu.inference.smc import resample_values
+    def test_vmap_matches_per_row_calls(self):
+        from genjax_xla.inference.smc import resample_indices_sorted
 
         keys = jax.random.split(jax.random.key(11), 4)
-        lw = jax.random.normal(jax.random.key(12), (4, 32))
-        xs = jax.random.normal(jax.random.key(13), (4, 32))
-        out = jax.vmap(
-            lambda k, w, v: resample_values(k, w, v, 32)
-        )(keys, lw, xs)
-        assert out.shape == (4, 32)
-        import numpy as np
+        lw = jax.random.normal(jax.random.key(12), (4, 32)) * 2.0
+        batched = np.asarray(jax.vmap(
+            lambda kk, w: resample_indices_sorted(kk, w, 48)
+        )(keys, lw))
+        for r in range(4):
+            np.testing.assert_array_equal(
+                batched[r],
+                np.asarray(resample_indices_sorted(keys[r], lw[r], 48)),
+            )
 
-        assert np.isfinite(np.asarray(out)).all()
-
-    def test_property_counts_conservation(self):
-        """Hypothesis sweep: for random shapes/weights, the fused
-        expansion's output multiset per row equals the systematic
-        offspring counts of its own cc (conservation: every dest
-        assigned exactly once), and total offspring == n."""
+    def test_property_systematic_offspring_counts(self):
+        """Hypothesis sweep: systematic offspring counts conserve n, the
+        ancestors are non-decreasing, and each particle gets floor or
+        ceil of n·w_i dests (one more or fewer only at f32 ties)."""
         from hypothesis import given, settings
         from hypothesis import strategies as st
 
-        import numpy as np
-
-        from genjax_tpu.inference.smc import (
-            _systematic_counts_cum_row,
-            resample_values,
-        )
+        from genjax_xla.inference.smc import resample_indices_sorted
 
         @given(st.integers(0, 2**16), st.sampled_from([8, 33, 127, 256]),
                st.floats(0.1, 8.0))
@@ -516,59 +464,19 @@ class TestFusedValueResample:
         def check(seed, k, scale):
             key = jax.random.key(seed)
             lw = jax.random.normal(jax.random.fold_in(key, 1), (k,)) * scale
-            xs = jnp.arange(float(k))  # identity payload -> output IS anc
-            anc = np.asarray(
-                resample_values(key, lw, xs, k), np.int64
-            )
-            cc = np.asarray(
-                _systematic_counts_cum_row(key, lw, k), np.int64
-            )
-            counts = np.diff(np.concatenate([[0], cc]))
-            assert counts.sum() == k
-            got_counts = np.bincount(anc, minlength=k)
-            np.testing.assert_array_equal(got_counts, counts)
-            # Ancestors non-decreasing (systematic runs are contiguous).
+            anc = np.asarray(resample_indices_sorted(key, lw, k))
             assert (np.diff(anc) >= 0).all()
+            counts = np.bincount(anc, minlength=k)
+            assert counts.sum() == k
+            expect = k * np.asarray(jax.nn.softmax(lw), np.float64)
+            assert (counts >= np.floor(expect) - 1).all()
+            assert (counts <= np.ceil(expect) + 1).all()
 
         check()
 
-    def test_bool_leaf_preserves_dtype(self):
-        """Review r5: sum-based select must not promote bool leaves —
-        the SMC2 fused path carries regime flags through scan carries,
-        where an int32 output breaks the carry dtype contract."""
-        import numpy as np
+    def test_unknown_method_raises(self):
+        from genjax_xla.inference.smc import resample_indices_sorted
 
-        from genjax_tpu.inference.smc import resample_values
-
-        lw = jnp.zeros(32)
-        tree = {"x": jnp.arange(32.0),
-                "flag": jnp.arange(32) % 2 == 0,
-                "count": jnp.arange(32, dtype=jnp.int16)}
-        out = resample_values(jax.random.key(0), lw, tree, 32)
-        assert out["flag"].dtype == jnp.bool_
-        assert out["count"].dtype == jnp.int16
-        assert out["x"].dtype == jnp.float32
-        # Uniform weights, systematic: identity permutation.
-        np.testing.assert_array_equal(
-            np.asarray(out["flag"]), np.asarray(tree["flag"])
-        )
-
-    def test_row_scale_guard(self):
-        import pytest
-
-        from genjax_tpu.inference.smc import (
-            resample_values,
-            resample_values_rows,
-        )
-
-        big = 1 << 15
-        with pytest.raises(ValueError, match="ROW-scale"):
-            resample_values(
-                jax.random.key(0), jnp.zeros(big),
-                jnp.zeros(big), big,
-            )
-        with pytest.raises(ValueError, match="ROW-scale"):
-            resample_values_rows(
-                jax.random.key(0), jnp.zeros((2, big)),
-                jnp.zeros((2, big)), big,
-            )
+        with pytest.raises(ValueError, match="Unknown resampling method"):
+            resample_indices_sorted(jax.random.key(0), jnp.zeros(8), 8,
+                                    method="nope")

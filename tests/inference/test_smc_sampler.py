@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import genjax_tpu as g
-from genjax_tpu.inference import HMC, Target
-from genjax_tpu.inference.smc_sampler import tempered_smc
+import genjax_xla as g
+from genjax_xla.inference import HMC, Target
+from genjax_xla.inference.smc_sampler import tempered_smc
 
 KEY = jax.random.key(314159)
 
@@ -71,7 +71,7 @@ class TestTemperedSMC:
 
 class TestWasteFree:
     def test_waste_free_logz_and_posterior(self):
-        from genjax_tpu.inference.smc_sampler import waste_free_tempered_smc
+        from genjax_xla.inference.smc_sampler import waste_free_tempered_smc
 
         run = waste_free_tempered_smc(
             make_target(), n_resampled=128, n_moves_per_particle=8,
@@ -88,7 +88,7 @@ class TestWasteFree:
         assert abs((w * mus).sum() - post_mean) < 0.05
 
     def test_waste_free_hmc(self):
-        from genjax_tpu.inference.smc_sampler import waste_free_tempered_smc
+        from genjax_xla.inference.smc_sampler import waste_free_tempered_smc
 
         run = waste_free_tempered_smc(
             make_target(), n_resampled=64, n_moves_per_particle=4,
@@ -107,8 +107,8 @@ class TestAIS:
     gate statically off: unbiased evidence, independent particles."""
 
     def test_logz_matches_conjugate_evidence(self):
-        import genjax_tpu as g
-        from genjax_tpu.inference import annealed_importance_sampling
+        import genjax_xla as g
+        from genjax_xla.inference import annealed_importance_sampling
 
         @g.gen
         def model():
@@ -134,8 +134,8 @@ class TestAIS:
         assert ess > 64
 
     def test_bitwise_equals_tempered_with_zero_threshold(self):
-        import genjax_tpu as g
-        from genjax_tpu.inference import (
+        import genjax_xla as g
+        from genjax_xla.inference import (
             annealed_importance_sampling,
             tempered_smc,
         )
@@ -163,8 +163,8 @@ class TestAIS:
         the adaptive sampler's tracing hits the stub."""
         import pytest
 
-        import genjax_tpu as g
-        from genjax_tpu.inference import (
+        import genjax_xla as g
+        from genjax_xla.inference import (
             annealed_importance_sampling,
             smc_sampler,
             tempered_smc,

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import genjax_tpu as g
-from genjax_tpu.inference import Target, run_svgd
-from genjax_tpu.inference.svgd import _rbf_phi, svgd_step
+import genjax_xla as g
+from genjax_xla.inference import Target, run_svgd
+from genjax_xla.inference.svgd import _rbf_phi, svgd_step
 
 KEY = jax.random.key(2718)
 

@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import genjax_tpu as g
-from genjax_tpu.gfi.choice_map import lanes_leading, partition_values
-from genjax_tpu.inference import Target
-from genjax_tpu.inference.adaptation import run_nuts
-from genjax_tpu.inference.transforms import (
+import genjax_xla as g
+from genjax_xla.gfi.choice_map import lanes_leading, partition_values
+from genjax_xla.inference import Target
+from genjax_xla.inference.adaptation import run_nuts
+from genjax_xla.inference.transforms import (
     PerBranch,
     constrain_choices,
     infer_transforms,
@@ -244,7 +244,7 @@ class TestTransformsReviewRegressions:
 
     @staticmethod
     def _unwrap(v):
-        from genjax_tpu.gfi.mask import Mask
+        from genjax_xla.gfi.mask import Mask
 
         while isinstance(v, Mask):
             v = v.value
@@ -320,7 +320,7 @@ class TestTransformsReviewRegressions:
         assert float(fldj2) != 0.0
 
     def test_unit_interval_spec(self):
-        from genjax_tpu.inference.transforms import get_bijector
+        from genjax_xla.inference.transforms import get_bijector
         import pytest
 
         b = get_bijector("unit_interval")

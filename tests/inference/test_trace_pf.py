@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import genjax_tpu as g
-from genjax_tpu.inference.trace_pf import trace_particle_filter
-from genjax_tpu.models import kalman_filter, lgssm_model
+import genjax_xla as g
+from genjax_xla.inference.trace_pf import trace_particle_filter
+from genjax_xla.models import kalman_filter, lgssm_model
 
 KEY = jax.random.key(314159)
 

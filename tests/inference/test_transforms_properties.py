@@ -7,7 +7,7 @@ import numpy as np
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from genjax_tpu.inference.transforms import (
+from genjax_xla.inference.transforms import (
     get_bijector,
     interval,
     positive,

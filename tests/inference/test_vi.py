@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import genjax_tpu as g
-from genjax_tpu.inference import Target, marginal, vi
+import genjax_xla as g
+from genjax_xla.inference import Target, marginal, vi
 
 KEY = jax.random.key(314159)
 
@@ -123,8 +123,8 @@ class TestPWake:
 class TestBetaImplicit:
     def test_beta_implicit_gradient(self):
         """d/da E[x], x ~ Beta(a, b) equals b/(a+b)^2 (implicit reparam)."""
-        from genjax_tpu.adev import beta_implicit as prim
-        from genjax_tpu.adev import expectation
+        from genjax_xla.adev import beta_implicit as prim
+        from genjax_xla.adev import expectation
 
         @expectation
         def loss(a):
@@ -179,7 +179,7 @@ class TestVmappedDiscreteGuide:
 class TestGammaImplicit:
     def test_gamma_shape_gradient(self):
         """d/da E[x], x ~ Gamma(a, rate b), equals 1/b."""
-        from genjax_tpu.adev import expectation, gamma_implicit as prim
+        from genjax_xla.adev import expectation, gamma_implicit as prim
 
         @expectation
         def loss(a):
@@ -191,7 +191,7 @@ class TestGammaImplicit:
 
     def test_gamma_rate_gradient(self):
         """d/db E[x] = -a/b^2 (pathwise through the scale)."""
-        from genjax_tpu.adev import expectation, gamma_implicit as prim
+        from genjax_xla.adev import expectation, gamma_implicit as prim
 
         @expectation
         def loss(b):
@@ -205,8 +205,8 @@ class TestGammaImplicit:
     def test_dirichlet_gradient(self):
         """d/da1 E[x_0], x ~ Dirichlet([a1, a2, a3]): (a0 - a1)/a0^2
         with a0 = sum(alpha)."""
-        from genjax_tpu.adev import dirichlet_implicit as prim
-        from genjax_tpu.adev import expectation
+        from genjax_xla.adev import dirichlet_implicit as prim
+        from genjax_xla.adev import expectation
 
         alpha = jnp.array([1.5, 2.0, 2.5])
 
@@ -304,8 +304,8 @@ class TestEnumGuideUnderParticleVmap:
         SMC-around-guide pattern (previously NotImplementedError;
         VERDICT r1 item 7). Gradient sanity: finite, and the ELBO
         improves along it."""
-        import genjax_tpu as g
-        from genjax_tpu.inference import Target, marginal, vi
+        import genjax_xla as g
+        from genjax_xla.inference import Target, marginal, vi
 
         @g.gen
         def model(v):

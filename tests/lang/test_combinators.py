@@ -10,7 +10,7 @@ import jax.scipy.stats as jss
 import numpy as np
 import pytest
 
-import genjax_tpu as g
+import genjax_xla as g
 
 KEY = jax.random.key(314159)
 
@@ -768,7 +768,7 @@ class TestScanIndexRequestRegressions:
     def test_index_request_with_changed_args_consistent(self):
         """Changed args lower the O(1) repair to a whole-chain Update:
         the result must satisfy score == assess(choices, new args)."""
-        from genjax_tpu.core.compiler.interpreters.incremental import Diff
+        from genjax_xla.core.compiler.interpreters.incremental import Diff
 
         @g.gen
         def step(c, x):
@@ -795,8 +795,8 @@ class TestScanIndexRequestRegressions:
         and flags a genuinely-propagating mid-chain edit."""
         from jax.experimental import checkify
 
-        from genjax_tpu.core.checks import do_checkify
-        from genjax_tpu.core.compiler.interpreters.incremental import Diff
+        from genjax_xla.core.checks import do_checkify
+        from genjax_xla.core.compiler.interpreters.incremental import Diff
 
         @g.gen
         def acc_step(c, _):
@@ -837,8 +837,8 @@ class TestScanIndexRequestGenericSubrequest:
         return step.scan(n=4)
 
     def test_hmc_subrequest_with_changed_args(self):
-        from genjax_tpu.core.compiler.interpreters.incremental import Diff
-        from genjax_tpu.inference.requests.hmc import HMC
+        from genjax_xla.core.compiler.interpreters.incremental import Diff
+        from genjax_xla.inference.requests.hmc import HMC
 
         sc = self._model()
         xs = jnp.zeros(4)
@@ -869,8 +869,8 @@ class TestScanIndexRequestGenericSubrequest:
         assert jnp.allclose(score_b, back_tr.get_score(), atol=1e-5)
 
     def test_rejuvenate_subrequest_with_changed_args(self):
-        from genjax_tpu.core.compiler.interpreters.incremental import Diff
-        from genjax_tpu.inference.requests.rejuvenate import Rejuvenate
+        from genjax_xla.core.compiler.interpreters.incremental import Diff
+        from genjax_xla.inference.requests.rejuvenate import Rejuvenate
 
         @g.gen
         def prop(old):
@@ -897,7 +897,7 @@ class TestSwitchIndexMHPosterior:
         higher-density branch on this conjugate model."""
         import numpy as np
 
-        from genjax_tpu.inference import Target, mh
+        from genjax_xla.inference import Target, mh
 
         @g.gen
         def b0():
@@ -952,7 +952,7 @@ class TestInlineCombinatorSugar:
         import numpy as np
         import scipy.stats as st
 
-        from genjax_tpu.inference import Target, mh
+        from genjax_xla.inference import Target, mh
 
         @g.gen
         def c0(shift):

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import genjax_tpu as g
-from genjax_tpu.inference import ImportanceK, Importance, Target, marginal
+import genjax_xla as g
+from genjax_xla.inference import ImportanceK, Importance, Target, marginal
 
 KEY = jax.random.key(314159)
 

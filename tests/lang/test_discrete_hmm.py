@@ -8,7 +8,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from genjax_tpu.lang.distributions.discrete_hmm import (
+from genjax_xla.lang.distributions.discrete_hmm import (
     DiscreteHMM,
     DiscreteHMMConfiguration,
     backward_sample,
@@ -17,7 +17,7 @@ from genjax_tpu.lang.distributions.discrete_hmm import (
     forward_filter_parallel,
     joint_logpdf,
 )
-from genjax_tpu.inference.exact_testbed import (
+from genjax_xla.inference.exact_testbed import (
     build_test_against_exact_inference,
 )
 
@@ -136,9 +136,9 @@ class TestTestbed:
 
     def test_sis_logz_matches_exact(self):
         """Importance sampling logZ on the HMM converges to the exact
-        data marginal (BASELINE config 3 sanity)."""
-        import genjax_tpu as g
-        from genjax_tpu.inference import ImportanceK, Target
+        data marginal (benchmark config 3 sanity)."""
+        import genjax_xla as g
+        from genjax_xla.inference import ImportanceK, Target
 
         build = build_test_against_exact_inference(3, 3, 4)
         problem = build(KEY)

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import scipy.stats as sps
 
-import genjax_tpu as g
+import genjax_xla as g
 
 KEY = jax.random.key(314159)
 N = 20_000
@@ -245,7 +245,7 @@ class TestSupportMetadata:
     ]
 
     def test_samples_inside_declared_support(self):
-        import genjax_tpu as g
+        import genjax_xla as g
 
         for name, args in self.CASES:
             dist = getattr(g, name)

@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import scipy.special as sps
 
-import genjax_tpu as g
-from genjax_tpu.lang.distributions.special import lambertw, log_bessel_iv
+import genjax_xla as g
+from genjax_xla.lang.distributions.special import lambertw, log_bessel_iv
 
 KEY = jax.random.key(314159)
 

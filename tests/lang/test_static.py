@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import jax.scipy.stats as jss
 import pytest
 
-import genjax_tpu as g
+import genjax_xla as g
 
 KEY = jax.random.key(314159)
 
@@ -326,8 +326,8 @@ class TestTupledAddresses:
 
 def test_iid_block_edit_paths():
     """Update / Regenerate on a sample_shape iid-block site."""
-    from genjax_tpu.gfi.requests import Regenerate
-    from genjax_tpu.gfi.selection import Selection
+    from genjax_xla.gfi.requests import Regenerate
+    from genjax_xla.gfi.selection import Selection
 
     @g.gen
     def f():
@@ -366,7 +366,7 @@ class TestStructureChangingEdits:
         return m
 
     def test_dropped_site_weight_and_discard(self):
-        from genjax_tpu.core.compiler.interpreters.incremental import Diff
+        from genjax_xla.core.compiler.interpreters.incremental import Diff
 
         m = self._model()
         tr = m.simulate(jax.random.key(0), (1,))
@@ -380,7 +380,7 @@ class TestStructureChangingEdits:
         assert bwd.constraint.has_value_at("extra")
 
     def test_new_site_unconstrained_and_constrained(self):
-        from genjax_tpu.core.compiler.interpreters.incremental import Diff
+        from genjax_xla.core.compiler.interpreters.incremental import Diff
 
         m = self._model()
         tr0 = m.simulate(jax.random.key(0), (0,))
@@ -397,9 +397,9 @@ class TestStructureChangingEdits:
         assert jnp.allclose(w3, jss.norm.logpdf(0.7, x, 1.0), atol=1e-6)
 
     def test_regenerate_across_structure_change(self):
-        from genjax_tpu.core.compiler.interpreters.incremental import Diff
-        from genjax_tpu.gfi.requests import Regenerate
-        from genjax_tpu.gfi.selection import Selection
+        from genjax_xla.core.compiler.interpreters.incremental import Diff
+        from genjax_xla.gfi.requests import Regenerate
+        from genjax_xla.gfi.selection import Selection
 
         m = self._model()
         tr = m.simulate(jax.random.key(0), (1,))
@@ -419,9 +419,9 @@ class TestKwargsTraceStability:
 
     def test_tree_map_and_mh_over_kwarg_traces(self):
         import jax.tree_util as jtu
-        from genjax_tpu.inference import mh
-        from genjax_tpu.gfi.requests import Regenerate
-        from genjax_tpu.gfi.selection import Selection
+        from genjax_xla.inference import mh
+        from genjax_xla.gfi.requests import Regenerate
+        from genjax_xla.gfi.selection import Selection
 
         @g.gen
         def sub(mu, scale=1.0):

@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import genjax_tpu as g
-from genjax_tpu.gfi.choice_map import ChoiceMap
-from genjax_tpu.gfi.requests import Regenerate, Update
-from genjax_tpu.lang import static as static_mod
+import genjax_xla as g
+from genjax_xla.gfi.choice_map import ChoiceMap
+from genjax_xla.gfi.requests import Regenerate, Update
+from genjax_xla.lang import static as static_mod
 
 
 S = 20
@@ -215,9 +215,9 @@ class TestEditReviewRegressions:
     """Late round-2 self-review fixes for the edit machinery."""
 
     def test_constant_retval_editable(self):
-        from genjax_tpu.core.compiler.interpreters.incremental import Diff
-        from genjax_tpu.gfi.requests import Regenerate
-        from genjax_tpu.gfi.selection import Selection
+        from genjax_xla.core.compiler.interpreters.incremental import Diff
+        from genjax_xla.gfi.requests import Regenerate
+        from genjax_xla.gfi.selection import Selection
 
         @g.gen
         def f(mu):
@@ -233,9 +233,9 @@ class TestEditReviewRegressions:
         assert new_tr.get_retval()[1] == 3.0
 
     def test_string_arg_body_falls_back_to_coarse(self):
-        from genjax_tpu.core.compiler.interpreters.incremental import Diff
-        from genjax_tpu.gfi.requests import Regenerate
-        from genjax_tpu.gfi.selection import Selection
+        from genjax_xla.core.compiler.interpreters.incremental import Diff
+        from genjax_xla.gfi.requests import Regenerate
+        from genjax_xla.gfi.selection import Selection
 
         @g.gen
         def m(mode, mu):

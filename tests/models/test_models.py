@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import genjax_tpu as g
-from genjax_tpu.inference import ImportanceK, Target
-from genjax_tpu.models import (
+import genjax_xla as g
+from genjax_xla.inference import ImportanceK, Target
+from genjax_xla.models import (
     gaussian_mixture,
     hierarchical_regression,
     hmm_model,
@@ -15,7 +15,7 @@ from genjax_tpu.models import (
     lgssm_model,
     nonlinear_tracking_model,
 )
-from genjax_tpu.lang.distributions.discrete_hmm import (
+from genjax_xla.lang.distributions.discrete_hmm import (
     DiscreteHMMConfiguration,
     forward_filter,
 )
@@ -43,7 +43,7 @@ class TestLGSSM:
         np.testing.assert_allclose(float(logz), float(want), atol=0.1)
 
     def test_nonlinear_tracking_builders(self):
-        from genjax_tpu.inference.pf import particle_filter
+        from genjax_xla.inference.pf import particle_filter
 
         init, step = nonlinear_tracking_model()
         ys = jax.random.normal(jax.random.key(2), (10,)) * 5.0
@@ -54,7 +54,7 @@ class TestLGSSM:
 
 class TestRegression:
     def test_nuts_recovers_slope(self):
-        from genjax_tpu.inference import run_nuts
+        from genjax_xla.inference import run_nuts
 
         xs = jnp.linspace(-1, 1, 25)
         ys = 1.5 * xs + 0.3

@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from genjax_tpu.models.slds import (
+from genjax_xla.models.slds import (
     SLDSParams,
     simulate_slds_data,
     slds_exact_log_marginal,
@@ -36,7 +36,7 @@ class TestExactOracle:
     def test_s1_collapses_to_kalman(self):
         """At S=1 both the enumeration oracle and the RBPF must equal
         the plain Kalman evidence."""
-        from genjax_tpu.models.ssm import kalman_filter
+        from genjax_xla.models.ssm import kalman_filter
 
         p = _params(1)
         _, _, ys = simulate_slds_data(KEY, p, 12)
@@ -97,8 +97,7 @@ class TestRaoBlackwellAdvantage:
         """The marginalized filter's evidence estimate must have lower
         spread than a joint (z, x) bootstrap PF at equal particle
         count — the point of Rao-Blackwellization."""
-        from genjax_tpu.inference.pf import particle_filter
-        from genjax_tpu.ops.onehot import take_elems, take_rows
+        from genjax_xla.inference.pf import particle_filter
 
         p = _params(2)
         _, _, ys = simulate_slds_data(jax.random.fold_in(KEY, 7), p, 25)
@@ -111,7 +110,7 @@ class TestRaoBlackwellAdvantage:
             kz, kx = jax.random.split(key)
             z = jax.random.categorical(kz, p.prior_logits, shape=(n,))
             x = p.mu0 + jnp.sqrt(p.p0) * jax.random.normal(kx, (n,))
-            r_z = take_elems(p.r, z)
+            r_z = p.r[z]
             lw = jax.scipy.stats.norm.logpdf(ys[0], x, jnp.sqrt(r_z))
             return (z, x), lw
 
@@ -119,13 +118,11 @@ class TestRaoBlackwellAdvantage:
             z, x = state
             kz, kx = jax.random.split(key)
             u = jax.random.uniform(kz, (n, 1))
-            rowcdf = take_rows(trans_cdf, z)
+            rowcdf = trans_cdf[z]
             z = jnp.minimum(jnp.sum(rowcdf < u, axis=-1), 1).astype(
                 z.dtype
             )
-            a_z = take_elems(p.a, z)
-            q_z = take_elems(p.q, z)
-            r_z = take_elems(p.r, z)
+            a_z, q_z, r_z = p.a[z], p.q[z], p.r[z]
             x = a_z * x + jnp.sqrt(q_z) * jax.random.normal(kx, (n,))
             lw = jax.scipy.stats.norm.logpdf(y, x, jnp.sqrt(r_z))
             return (z, x), lw

@@ -2,7 +2,7 @@
 
 CPU tests pin the numerical contract (output dtype f32, error bounded by
 bf16 operand rounding, custom-VJP gradients matching f32 AD within the
-same bound) across ranks; the on-chip speed claim lives in BASELINE.md.
+same bound) across ranks.
 """
 
 import jax
@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from genjax_tpu.ops import mxu_dot
+from genjax_xla.ops import mxu_dot
 
 KEY = jax.random.key(42)
 
@@ -98,6 +98,6 @@ def test_contraction_mismatch_raises():
     a = jnp.zeros((4, 5))
     b = jnp.zeros((6, 3))
     with pytest.raises(ValueError, match="contraction mismatch"):
-        from genjax_tpu.ops.mxu import mxu_dot
+        from genjax_xla.ops.mxu import mxu_dot
 
         mxu_dot(a, b)

@@ -1,59 +1,69 @@
-"""One-hot contraction row/element selection vs fancy indexing, and the
-MXU-native HMM bootstrap filter vs the exact forward filter."""
+"""Exact row/element selection from the HMM and SLDS tables by gather,
+and the HMM bootstrap filter built on it vs the exact forward filter."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from genjax_tpu.ops.onehot import one_hot_rows, take_elems, take_rows
 
-
-def test_take_rows_matches_gather():
-    k = jax.random.key(0)
-    table = jax.random.normal(k, (64, 32))
-    idx = jax.random.randint(jax.random.key(1), (1000,), 0, 64)
-    got = take_rows(table, idx)
-    want = table[idx]
-    # One-hot matmul reproduces rows to f32 roundoff (bf16x3 lowering
-    # on TPU; exact on CPU) — docstring contract.
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(want), rtol=1e-6, atol=1e-6
+def _tables(dtype):
+    """An (S, S) table with -inf entries (impossible transitions) and an
+    (S,) column, as the HMM filter gathers them."""
+    from genjax_xla.lang.distributions.discrete_hmm import (
+        DiscreteHMMConfiguration,
     )
 
-
-def test_take_rows_multidim_table():
-    table = jax.random.normal(jax.random.key(2), (16, 4, 5))
-    idx = jnp.array([3, 3, 0, 15])
-    got = take_rows(table, idx)
-    assert got.shape == (4, 4, 5)
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(table[idx]), rtol=1e-6, atol=1e-6
-    )
+    logits = DiscreteHMMConfiguration.circulant(16, 16).transition_logits
+    logits = jnp.where(jnp.abs(logits) > 6.0, -jnp.inf, logits)
+    return logits.astype(dtype), logits[:, 3].astype(dtype)
 
 
-def test_take_elems_matches_gather():
-    v = jax.random.normal(jax.random.key(3), (128,))
-    idx = jax.random.randint(jax.random.key(4), (777,), 0, 128)
-    np.testing.assert_allclose(
-        np.asarray(take_elems(v, idx)), np.asarray(v[idx]),
-        rtol=1e-6, atol=1e-6,
-    )
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_gather_selection_exact_with_neg_inf(dtype):
+    """Row and element gathers return the table entries bit for bit,
+    -inf included (a one-hot contraction would give 0 * -inf = NaN)."""
+    table, col = _tables(dtype)
+    assert bool(jnp.any(jnp.isneginf(table)))
+    idx = jax.random.randint(jax.random.key(1), (1000,), 0, 16)
+    rows = jax.jit(lambda t, i: t[i])(table, idx)
+    elems = jax.jit(lambda c, i: c[i])(col, idx)
+    t_np, c_np, i_np = np.asarray(table), np.asarray(col), np.asarray(idx)
+    np.testing.assert_array_equal(np.asarray(rows), t_np[i_np])
+    np.testing.assert_array_equal(np.asarray(elems), c_np[i_np])
+    assert not np.isnan(np.asarray(rows, np.float32)).any()
 
 
-def test_one_hot_rows_exact():
-    oh = one_hot_rows(jnp.array([0, 2, 2]), 4)
-    np.testing.assert_array_equal(
-        np.asarray(oh),
-        np.array([[1, 0, 0, 0], [0, 0, 1, 0], [0, 0, 1, 0]], np.float32),
-    )
+def test_two_index_gather_matches_column_then_element():
+    """``obs_logits[z, o]`` with a traced observation equals the column
+    ``obs_logits[:, o]`` gathered at ``z``."""
+    table, _ = _tables(jnp.float32)
+    z = jax.random.randint(jax.random.key(2), (513,), 0, 16)
+    for o in (0, 7, 15):
+        got = jax.jit(lambda t, z, o: t[z, o])(table, z, o)
+        np.testing.assert_array_equal(
+            np.asarray(got), np.asarray(table)[:, o][np.asarray(z)]
+        )
+
+
+def test_invcdf_rows_never_pick_impossible_state():
+    """Inverse-CDF sampling on gathered CDF rows of a table with
+    impossible transitions never lands on one of them."""
+    table, _ = _tables(jnp.float32)
+    cdf = jnp.cumsum(jax.nn.softmax(table, axis=-1), axis=-1)
+    zs = jax.random.randint(jax.random.key(3), (4096,), 0, 16)
+    u = jax.random.uniform(jax.random.key(4), (4096, 1))
+    z_new = jnp.minimum(jnp.sum(cdf[zs] < u, axis=-1), 15)
+    picked = np.asarray(table)[np.asarray(zs), np.asarray(z_new)]
+    assert np.isfinite(picked).all()
 
 
 def test_hmm_bootstrap_filter_logz():
-    from genjax_tpu.lang.distributions.discrete_hmm import (
+    from genjax_xla.lang.distributions.discrete_hmm import (
         DiscreteHMMConfiguration, forward_filter,
     )
-    from genjax_tpu.inference.exact_testbed import sample_problem
-    from genjax_tpu.models import hmm_bootstrap_filter
+    from genjax_xla.inference.exact_testbed import sample_problem
+    from genjax_xla.models import hmm_bootstrap_filter
 
     S, T = 16, 24
     config = DiscreteHMMConfiguration.circulant(S, S)
@@ -67,18 +77,18 @@ def test_hmm_bootstrap_filter_logz():
 
 
 def test_hmm_bootstrap_filter_sharded_bitwise():
-    """The MXU one-hot HMM filter under a mesh sharding constraint:
+    """The HMM filter under a mesh sharding constraint:
     same bits as the unsharded run (batched path: one key per step, so
     ensemble values are layout-independent), particles spread over the
     virtual 8-device mesh."""
     import numpy as np
 
-    from genjax_tpu.lang.distributions.discrete_hmm import (
+    from genjax_xla.lang.distributions.discrete_hmm import (
         DiscreteHMMConfiguration,
     )
-    from genjax_tpu.inference.exact_testbed import sample_problem
-    from genjax_tpu.models import hmm_bootstrap_filter
-    from genjax_tpu.parallel.mesh import particle_mesh, shard_leading_axis
+    from genjax_xla.inference.exact_testbed import sample_problem
+    from genjax_xla.models import hmm_bootstrap_filter
+    from genjax_xla.parallel.mesh import particle_mesh, shard_leading_axis
 
     S, T, P = 16, 12, 1024
     config = DiscreteHMMConfiguration.circulant(S, S)
@@ -109,11 +119,11 @@ def test_hmm_bootstrap_filter_sharded_bitwise():
 def test_hmm_bootstrap_filter_gumbel_path_logz():
     """Both transition samplers target the same law: the gumbel
     (categorical) path also matches the exact forward filter."""
-    from genjax_tpu.lang.distributions.discrete_hmm import (
+    from genjax_xla.lang.distributions.discrete_hmm import (
         DiscreteHMMConfiguration, forward_filter,
     )
-    from genjax_tpu.inference.exact_testbed import sample_problem
-    from genjax_tpu.models import hmm_bootstrap_filter
+    from genjax_xla.inference.exact_testbed import sample_problem
+    from genjax_xla.models import hmm_bootstrap_filter
 
     S, T = 16, 24
     config = DiscreteHMMConfiguration.circulant(S, S)

@@ -44,14 +44,14 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh
 
-from genjax_tpu.parallel.bootstrap import init_distributed
+from genjax_xla.parallel.bootstrap import init_distributed
 
 if nproc > 1:
     init_distributed(f"127.0.0.1:{port}", nproc, pid)
 assert len(jax.devices()) == 4, jax.devices()
 
-import genjax_tpu as g
-from genjax_tpu.inference import Target
+import genjax_xla as g
+from genjax_xla.inference import Target
 
 out: dict = {}
 
@@ -63,7 +63,7 @@ def save_sharded(name: str, arr) -> None:
 
 
 # --- 1. sharded_smc_step: the dryrun_multichip product path ------------
-from genjax_tpu.parallel.smc import sharded_smc_step
+from genjax_xla.parallel.smc import sharded_smc_step
 
 mesh = Mesh(np.asarray(jax.devices()), ("particles",))
 
@@ -90,7 +90,7 @@ save_sharded("smc_lw", col.get_log_weights())
 
 if mode == "all":
     # --- 2. mesh-sharded NUTS warmup + sampling ------------------------
-    from genjax_tpu.inference import run_nuts
+    from genjax_xla.inference import run_nuts
 
     chain_mesh = Mesh(np.asarray(jax.devices()), ("chains",))
 
@@ -117,10 +117,10 @@ if mode == "all":
     assert np.isfinite(out["nuts_mu_mean"])
 
     # --- 3. time-sharded FFBS forward filter ---------------------------
-    from genjax_tpu.lang.distributions.discrete_hmm import (
+    from genjax_xla.lang.distributions.discrete_hmm import (
         DiscreteHMMConfiguration,
     )
-    from genjax_tpu.parallel.seq import time_sharded_filter
+    from genjax_xla.parallel.seq import time_sharded_filter
 
     time_mesh = Mesh(np.asarray(jax.devices()), ("time",))
     cfg = DiscreteHMMConfiguration.circulant(8, 8)
@@ -136,7 +136,7 @@ if mode == "all":
     save_sharded("ffbs_alphas", alphas)
 
     # --- 4. particle-sharded SVGD ------------------------------------
-    from genjax_tpu.parallel.svgd import run_sharded_svgd
+    from genjax_xla.parallel.svgd import run_sharded_svgd
 
     svgd_mesh = Mesh(np.asarray(jax.devices()), ("particles",))
     xs0 = np.asarray(

@@ -2,15 +2,15 @@
 
 Run as ``python mh_worker.py <pid> <nproc> <port>``; each process owns 2
 virtual CPU devices, joins the gloo process group through
-``genjax_tpu.parallel.bootstrap.init_distributed``, and executes the
+``genjax_xla.parallel.bootstrap.init_distributed``, and executes the
 explicit-collective SMC reductions over the GLOBAL 2×2-device mesh.
 Every process verifies its own addressable output shard against a
 numpy oracle of the full computation and prints ``MH_OK <pid>``.
 
 This executes the real cross-process path (jax.distributed + gloo
-collectives) that a TPU pod's DCN layer uses — the closest a single
-host can get to the BASELINE.md multi-host acceptance (SURVEY §2.3
-"multi-host bootstrap" row; VERDICT r1 marked it partial).
+collectives) that a multi-host deployment uses — the closest a single
+host can get to a multi-host run (SURVEY §2.3 "multi-host bootstrap"
+row).
 """
 
 import os
@@ -29,12 +29,12 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from genjax_tpu.parallel.bootstrap import (
+from genjax_xla.parallel.bootstrap import (
     init_distributed,
     is_multihost,
     local_particle_slice,
 )
-from genjax_tpu.parallel.collectives import (
+from genjax_xla.parallel.collectives import (
     shardmap_ess,
     shardmap_logz,
     shardmap_systematic_resample,

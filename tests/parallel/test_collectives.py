@@ -9,16 +9,16 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from genjax_tpu.inference.smc import (
+from genjax_xla.inference.smc import (
     effective_sample_size,
     resample_tree,
 )
-from genjax_tpu.parallel.collectives import (
+from genjax_xla.parallel.collectives import (
     shardmap_ess,
     shardmap_logz,
     shardmap_systematic_resample,
 )
-from genjax_tpu.parallel.mesh import particle_mesh
+from genjax_xla.parallel.mesh import particle_mesh
 
 N = 1 << 12
 
@@ -131,7 +131,7 @@ class TestDistributedResample:
 # Deterministic blocked-CDF product path (VERDICT r2 item 1)
 # ---------------------------------------------------------------------------
 
-from genjax_tpu.parallel.collectives import (  # noqa: E402
+from genjax_xla.parallel.collectives import (  # noqa: E402
     blocked_ess,
     blocked_logz,
     ring_resample_step,
@@ -259,9 +259,9 @@ class TestRingResampleProduct:
 
 class TestProductShardedSMC:
     def test_sharded_smc_step_bitwise_across_layouts(self):
-        import genjax_tpu as g
-        from genjax_tpu.inference import Target
-        from genjax_tpu.parallel import sharded_smc_step
+        import genjax_xla as g
+        from genjax_xla.inference import Target
+        from genjax_xla.parallel import sharded_smc_step
 
         @g.gen
         def bb(a, b):
@@ -286,7 +286,7 @@ class TestProductShardedSMC:
         assert outs[0][1] == outs[1][1]
 
     def test_sharded_pf_collective_bitwise_and_hlo(self):
-        from genjax_tpu.parallel import sharded_particle_filter
+        from genjax_xla.parallel import sharded_particle_filter
 
         def init(key):
             return jax.random.normal(key), jnp.zeros(())
@@ -384,7 +384,7 @@ class TestLayoutFreeBlock:
     re-associating (the pre-r3 shrink)."""
 
     def test_awkward_n_bitwise_across_layouts(self):
-        from genjax_tpu.parallel.collectives import blocked_stats
+        from genjax_xla.parallel.collectives import blocked_stats
         from jax.sharding import Mesh
 
         n = 3000  # n/D = 375 on 8 devices; old code raised (block=256)
@@ -404,7 +404,7 @@ class TestLayoutFreeBlock:
         np.testing.assert_allclose(outs[0][0], ref_logz, rtol=1e-5)
 
     def test_derivation_is_global_only(self):
-        from genjax_tpu.parallel.collectives import _layout_free_block
+        from genjax_xla.parallel.collectives import _layout_free_block
 
         # Divides n/D for every power-of-two D up to 256.
         for n in (3000, 1 << 20, 4096, 12, 100):
@@ -414,15 +414,15 @@ class TestLayoutFreeBlock:
                 assert (n >> k) % b == 0, (n, k, b)
 
     def test_headline_block_unchanged(self):
-        from genjax_tpu.parallel.collectives import _layout_free_block
+        from genjax_xla.parallel.collectives import _layout_free_block
 
         # The 2^20-particle product path keeps its tuned 256 block.
         assert _layout_free_block(1 << 20, 256) == 256
 
 
 class TestCommModelExtraction:
-    """Pins tools/comm_model.py's HLO collective extraction — the
-    measured half of docs/SCALING_MODEL.md — against the ring resample
+    """Pins tools/comm_model.py's HLO collective extraction (the byte
+    counts in docs/comm_model.json) against the ring resample
     whose comm structure is already asserted line-by-line above."""
 
     def test_ring_resample_classification(self):

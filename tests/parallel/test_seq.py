@@ -9,11 +9,11 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from genjax_tpu.lang.distributions.discrete_hmm import (
+from genjax_xla.lang.distributions.discrete_hmm import (
     DiscreteHMMConfiguration,
     forward_filter,
 )
-from genjax_tpu.parallel.seq import time_sharded_filter
+from genjax_xla.parallel.seq import time_sharded_filter
 
 T, S = 256, 8
 BLOCK = 16
@@ -135,7 +135,7 @@ class TestTimeShardedBackwardSample:
         return config, obs
 
     def test_bitwise_all_layouts(self):
-        from genjax_tpu.parallel.seq import time_sharded_backward_sample
+        from genjax_xla.parallel.seq import time_sharded_backward_sample
 
         config, obs = self._setup()
         outs = []
@@ -157,7 +157,7 @@ class TestTimeShardedBackwardSample:
         forward-backward smoothing distribution."""
         from jax.scipy.special import logsumexp as lse
 
-        from genjax_tpu.parallel.seq import time_sharded_backward_sample
+        from genjax_xla.parallel.seq import time_sharded_backward_sample
 
         T, S = 16, 3
         config, obs = self._setup(T, S)

@@ -19,9 +19,9 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-import genjax_tpu as g
-from genjax_tpu.inference import Target, run_nuts
-from genjax_tpu.inference.adaptation import (
+import genjax_xla as g
+from genjax_xla.inference import Target, run_nuts
+from genjax_xla.inference.adaptation import (
     _cross_chain_stats,
     warmup_chains,
 )
@@ -221,10 +221,10 @@ class TestShardedHMC:
         """1024-chain HMC with the chain axis sharded over the mesh vs
         plain vmap — bitwise (per-chain fold_in keys, no cross-chain
         coupling)."""
-        from genjax_tpu.gfi.choice_map import ChoiceMap
-        from genjax_tpu.inference.mcmc import mh
-        from genjax_tpu.inference.requests.hmc import HMC
-        from genjax_tpu.parallel.mesh import shard_leading_axis
+        from genjax_xla.gfi.choice_map import ChoiceMap
+        from genjax_xla.inference.mcmc import mh
+        from genjax_xla.inference.requests.hmc import HMC
+        from genjax_xla.parallel.mesh import shard_leading_axis
 
         target = Target(normal_model, (), g.C["y"].set(1.0))
         n_chains, n_steps = 1024, 10

@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import genjax_tpu as g  # noqa: F401  (conftest forces cpu + 8 devices)
-from genjax_tpu.inference.pgibbs import particle_gibbs
-from genjax_tpu.models.ssm import kalman_smoother
-from genjax_tpu.parallel.mesh import (
+import genjax_xla as g  # noqa: F401  (conftest forces cpu + 8 devices)
+from genjax_xla.inference.pgibbs import particle_gibbs
+from genjax_xla.models.ssm import kalman_smoother
+from genjax_xla.parallel.mesh import (
     Mesh,
     particle_mesh,
     shard_leading_axis,

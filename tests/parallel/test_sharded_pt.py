@@ -7,11 +7,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import genjax_tpu as g
-from genjax_tpu.inference import Target
-from genjax_tpu.inference.pt import parallel_tempering
-from genjax_tpu.inference.requests.rejuvenate import Rejuvenate
-from genjax_tpu.parallel import Mesh, particle_mesh, shard_leading_axis
+import genjax_xla as g
+from genjax_xla.inference import Target
+from genjax_xla.inference.pt import parallel_tempering
+from genjax_xla.inference.requests.rejuvenate import Rejuvenate
+from genjax_xla.parallel import Mesh, particle_mesh, shard_leading_axis
 
 KEY = jax.random.key(314159)
 

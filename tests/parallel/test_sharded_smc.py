@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import genjax_tpu as g
-from genjax_tpu.inference import Target
-from genjax_tpu.parallel import (
+import genjax_xla as g
+from genjax_xla.inference import Target
+from genjax_xla.parallel import (
     Mesh,
     particle_mesh,
     sharded_importance,
@@ -92,7 +92,7 @@ def test_sharded_smc_step_2d_mesh():
 
 
 def test_sharded_particle_filter():
-    from genjax_tpu.parallel import sharded_particle_filter
+    from genjax_xla.parallel import sharded_particle_filter
 
     mesh = particle_mesh()
 
@@ -116,7 +116,7 @@ def test_sharded_particle_filter():
 
 
 def test_batched_particle_filter_matches_perkey_structure():
-    from genjax_tpu.inference.pf import particle_filter
+    from genjax_xla.inference.pf import particle_filter
 
     n = 2048
 
@@ -135,8 +135,8 @@ def test_batched_particle_filter_matches_perkey_structure():
 
 
 def test_sharded_nuts_chains():
-    from genjax_tpu.inference import Target, run_nuts
-    from genjax_tpu.parallel import Mesh
+    from genjax_xla.inference import Target, run_nuts
+    from genjax_xla.parallel import Mesh
 
     mesh = Mesh(np.asarray(jax.devices()), ("chains",))
 
@@ -157,7 +157,7 @@ def test_sharded_nuts_chains():
 
 
 def test_host_device_mesh():
-    from genjax_tpu.parallel import host_device_mesh
+    from genjax_xla.parallel import host_device_mesh
 
     mesh = host_device_mesh()
     assert mesh.devices.size == 8

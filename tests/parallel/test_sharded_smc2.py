@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from genjax_tpu.inference.smc2 import smc2
-from genjax_tpu.models.ssm import simulate_lgssm_data
-from genjax_tpu.parallel.mesh import (
+from genjax_xla.inference.smc2 import smc2
+from genjax_xla.models.ssm import simulate_lgssm_data
+from genjax_xla.parallel.mesh import (
     Mesh,
     particle_mesh,
     shard_leading_axis,

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from genjax_tpu.parallel.svgd import run_sharded_svgd, sharded_svgd_step
+from genjax_xla.parallel.svgd import run_sharded_svgd, sharded_svgd_step
 
 N, D = 512, 4
 
@@ -97,7 +97,7 @@ class TestRunShardedSVGD:
     def test_matches_unsharded_statistics(self, xs0):
         """The sharded fit (subsampled bandwidth) and inference.run_svgd's
         math (full median) agree on the fitted moments."""
-        from genjax_tpu.inference.svgd import _rbf_phi
+        from genjax_xla.inference.svgd import _rbf_phi
 
         def body(carry, _):
             xs, acc = carry

@@ -1,6 +1,6 @@
 """HLO-extracted communication footprint of the product sharded
-programs — the measurable half of the pod-scaling model
-(docs/SCALING_MODEL.md; VERDICT r4 item 4).
+programs: the bytes each collective moves, a property of the compiled
+program and not of the device it runs on.
 
 For each product entry point this compiles the per-step program on a
 D-device virtual CPU mesh and parses the compiled HLO for collective
@@ -17,9 +17,8 @@ Usage::
     python tools/comm_model.py            # prints the table, writes
                                           # docs/comm_model.json
 
-The JSON is the falsifiable artifact: a future pod run can diff its
-profiled per-step transfer volumes against these numbers, and the
-efficiency predictions in SCALING_MODEL.md are pure arithmetic on them.
+The JSON is the falsifiable artifact: a profiled multi-device run can
+diff its per-step transfer volumes against these numbers.
 """
 
 from __future__ import annotations
@@ -127,7 +126,7 @@ def prog_pf_resample(devs) -> tuple[str, dict]:
     log-weights): the ENTIRE per-step comm of config 4 — propagation and
     weighting are embarrassingly parallel, and the resample fires ~70%
     of steps."""
-    from genjax_tpu.parallel.collectives import ring_resample_step
+    from genjax_xla.parallel.collectives import ring_resample_step
 
     n = 1 << 20
     mesh = Mesh(np.asarray(devs), ("particles",))
@@ -145,9 +144,9 @@ def prog_pf_resample(devs) -> tuple[str, dict]:
 def prog_smc_step(devs) -> tuple[str, dict]:
     """The dryrun_multichip sharded SMC step (2^16 particles, forced
     resample)."""
-    import genjax_tpu as g
-    from genjax_tpu.inference import Target
-    from genjax_tpu.parallel.smc import sharded_smc_step
+    import genjax_xla as g
+    from genjax_xla.inference import Target
+    from genjax_xla.parallel.smc import sharded_smc_step
 
     @g.gen
     def bb(a, b):
@@ -167,8 +166,8 @@ def prog_nuts_warmup(devs) -> tuple[str, dict]:
     """Mesh-sharded NUTS (config 2 shape, shrunk iterations): the only
     comm is the cross-chain adaptation stats — O(scalars) per warmup
     window, independent of model size."""
-    import genjax_tpu as g
-    from genjax_tpu.inference import Target, run_nuts
+    import genjax_xla as g
+    from genjax_xla.inference import Target, run_nuts
 
     n_pts = 128
     xs = jnp.linspace(-1.0, 1.0, n_pts)
@@ -200,10 +199,10 @@ def prog_ffbs(devs) -> tuple[str, dict]:
     """Time-sharded FFBS forward filter (T=1024, S=64): comm is the
     block-summary all_gather — O(T/block · S²) once per SEQUENCE, never
     the per-step states."""
-    from genjax_tpu.lang.distributions.discrete_hmm import (
+    from genjax_xla.lang.distributions.discrete_hmm import (
         DiscreteHMMConfiguration,
     )
-    from genjax_tpu.parallel.seq import time_sharded_filter
+    from genjax_xla.parallel.seq import time_sharded_filter
 
     cfg = DiscreteHMMConfiguration.circulant(64, 64)
     T = 1024
@@ -219,7 +218,7 @@ def prog_ffbs(devs) -> tuple[str, dict]:
 def prog_svgd_step(devs) -> tuple[str, dict]:
     """One sharded SVGD update (config 10 shape: 4096 particles, D=64):
     positions+gradients all-gathered (O(N·D)), kernel math local."""
-    from genjax_tpu.parallel.svgd import run_sharded_svgd
+    from genjax_xla.parallel.svgd import run_sharded_svgd
 
     mesh = Mesh(np.asarray(devs), ("particles",))
     xs0 = jax.random.normal(jax.random.key(0), (4096, 64))

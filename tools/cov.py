@@ -1,7 +1,7 @@
 """Vendored line-coverage tool (the image ships no pytest-cov/coverage).
 
 Uses CPython 3.12's ``sys.monitoring`` (PEP 669): LINE events are armed
-for code objects whose filename lives under ``genjax_tpu/`` and each
+for code objects whose filename lives under ``genjax_xla/`` and each
 line is DISABLEd after its first hit, so steady-state overhead is near
 zero. Executable lines are derived per file by compiling the source and
 walking every nested code object's ``co_lines()`` — the same universe
@@ -25,7 +25,7 @@ import os
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PKG = os.path.join(ROOT, "genjax_tpu")
+PKG = os.path.join(ROOT, "genjax_xla")
 
 TOOL = sys.monitoring.COVERAGE_ID
 
@@ -62,7 +62,7 @@ def collect(pytest_args: list[str]) -> tuple[dict[str, set[int]], int]:
         # so steady-state overhead is ~zero either way.
         return sys.monitoring.DISABLE
 
-    sys.monitoring.use_tool_id(TOOL, "genjax_tpu-cov")
+    sys.monitoring.use_tool_id(TOOL, "genjax_xla-cov")
     sys.monitoring.register_callback(
         TOOL, sys.monitoring.events.LINE, on_line
     )

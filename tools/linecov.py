@@ -21,7 +21,7 @@ import os
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PKG = os.path.join(ROOT, "genjax_tpu")
+PKG = os.path.join(ROOT, "genjax_xla")
 
 _hit: dict[str, set[int]] = {}
 
@@ -99,7 +99,7 @@ def main() -> int:
         acc[0] += d["lines"]
         acc[1] += d["covered"]
 
-    print("\n== line coverage (genjax_tpu) ==")
+    print("\n== line coverage (genjax_xla) ==")
     for key in sorted(by_pkg):
         ln, cov = by_pkg[key]
         print(f"  {key:40s} {100.0 * cov / ln:5.1f}%  ({cov}/{ln})")
